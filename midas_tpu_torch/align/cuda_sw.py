@@ -1,0 +1,145 @@
+"""Wrapper of the hand-written banded-DP kernel (csrc/banded_sw.cu).
+
+`banded_align_cuda` launches the kernel on CUDA tensors and raises on
+anything else; the pipeline's dispatch_banded_align sends CPU tensors to
+the plain version (align/banded.py) instead — there is no fallback from
+the card to the plain version.
+
+The kernel is compiled on first use with nvcc for sm_90a into the
+checkout's build/ directory and loaded with ctypes (plain C interface,
+no PyTorch headers, so the build takes seconds). Nothing is built or
+imported from CUDA when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from midas_tpu_torch._build import PACKAGE_DIR, build_dir
+from midas_tpu_torch.align.banded import FULL_FIELDS, SCORE_ONLY_FIELDS
+from midas_tpu_torch.align.params import ScoringParams
+
+SOURCE = os.path.join(PACKAGE_DIR, "csrc", "banded_sw.cu")
+BAND = 16   # the kernel's compiled band width
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if not CUDA_HOME:
+        raise RuntimeError("banded_sw: no CUDA toolkit found (nvcc); the "
+                           "kernel cannot be built")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build_library() -> str:
+    """Compile csrc/banded_sw.cu into build/libbanded_sw.so unless an
+    up-to-date build is there. nvcc's register / spill report goes to
+    build/banded_sw.ptxas.txt. Raises if the build fails."""
+    so = os.path.join(build_dir(), "libbanded_sw.so")
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(SOURCE):
+        return so
+    tmp = f"{so}.tmp.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"banded_sw: nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    with open(os.path.join(build_dir(), "banded_sw.ptxas.txt"), "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once) and dlopen the kernel library."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_library())
+            lib.banded_sw_launch.restype = ctypes.c_int
+            lib.banded_sw_launch.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            _LIB = lib
+        return _LIB
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"banded_sw: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"banded_sw: {name} is {t.dtype}, not {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"banded_sw: {name} has shape {tuple(t.shape)}, "
+                         f"not {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"banded_sw: {name} is not contiguous")
+
+
+def banded_align_cuda(
+    query: torch.Tensor,    # [P, L] int8, CUDA
+    qlens: torch.Tensor,    # [P] int32
+    ref_win: torch.Tensor,  # [P, L + 15] int8
+    params: ScoringParams,
+    band_width: int = BAND,
+    qpen: Optional[torch.Tensor] = None,   # [P, L] int8
+    score_only: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Launch the kernel on the current stream of the inputs' card.
+    Same contract and same results, bit for bit, as banded_align_plain.
+    Counts its launches in banded_align_cuda.launches."""
+    device = query.device
+    if device.type != "cuda":
+        raise ValueError(f"banded_sw: kernel inputs must be CUDA tensors, "
+                         f"got {device}")
+    if band_width != BAND:
+        raise ValueError(f"banded_sw: the kernel is built for band width "
+                         f"{BAND}, got {band_width}")
+    if query.dim() != 2 or query.shape[1] == 0:
+        raise ValueError("banded_sw: query must be [P, L] with L > 0")
+    P, L = query.shape
+    _check(query, "query", torch.int8, (P, L), device)
+    _check(qlens, "qlens", torch.int32, (P,), device)
+    _check(ref_win, "ref_win", torch.int8, (P, L + BAND - 1), device)
+    if qpen is not None:
+        _check(qpen, "qpen", torch.int8, (P, L), device)
+    fields = SCORE_ONLY_FIELDS if score_only else FULL_FIELDS
+    score = torch.empty(P, dtype=torch.float32, device=device)
+    stats = torch.empty((len(fields) - 1, P), dtype=torch.int32,
+                        device=device)
+    if P:
+        lib = load_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.banded_sw_launch(
+                query.data_ptr(), qlens.data_ptr(), ref_win.data_ptr(),
+                None if qpen is None else qpen.data_ptr(),
+                score.data_ptr(), stats.data_ptr(), P, L,
+                int(params.mode == "local"), 1 if score_only else 6,
+                float(params.match), float(params.mismatch),
+                float(params.gap_open), float(params.gap_extend),
+                float(params.n_pen), stream)
+        if rc != 0:
+            raise RuntimeError(f"banded_sw: launch failed with CUDA error "
+                               f"{rc}")
+        banded_align_cuda.launches += 1
+    out = {"score": score}
+    out.update(zip(fields[1:], stats.unbind(0)))
+    return out
+
+
+banded_align_cuda.launches = 0
+

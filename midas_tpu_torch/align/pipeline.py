@@ -1,0 +1,222 @@
+"""Full seed-and-extend aligner over a packed reference.
+
+Composes db/index.py (hashed seed tables) + align/seed.py (seed-and-
+vote candidates) + the banded affine DP (align/cuda_sw.py: the CUDA
+kernel on the card, the plain version on the CPU) into the equivalent
+of one bowtie2 / hs-blastn invocation (reference call sites:
+midas/run/species.py:29-49, genes.py:116-145, snps.py:97-128).
+Alignments never leave the device as text: downstream profilers consume
+the [B, C] result tensors directly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from midas_tpu_torch.align import cuda_sw
+from midas_tpu_torch.align.banded import banded_align_plain
+from midas_tpu_torch.align.params import ScoringParams
+from midas_tpu_torch.align.seed import (SeedParams, find_candidates,
+                                        gather_windows_packed,
+                                        pack_words_host, reverse_batch)
+from midas_tpu_torch.db.index import SeedIndex
+from midas_tpu_torch.db.refpack import ReferencePack
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    is an error: the port never falls back from the card to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but no CUDA card is available; pass "
+            "device='cpu' to run the plain CPU path")
+    return device
+
+
+def quality_penalties(quals: torch.Tensor,
+                      scoring: ScoringParams) -> torch.Tensor:
+    """Per-base positive mismatch penalties from Phred qualities —
+    bowtie2's --mp MX,MN table in exact integer arithmetic:
+    MN + ((MX - MN) * min(Q, 40)) // 40. quals [B, L] int8 -> int8."""
+    mx = -scoring.mismatch
+    mn = scoring.mm_min
+    q = quals.to(torch.int32).clamp(max=40)
+    return (mn + torch.div((mx - mn) * q, 40, rounding_mode="floor")
+            ).to(torch.int8)
+
+
+def dispatch_banded_align(q_pair, qlens_pair, win_pair, scoring, band_width,
+                          score_only: bool = False, qpen_pair=None):
+    """The banded DP over [P, L] pairs: the hand-written kernel for CUDA
+    tensors (align/cuda_sw.py), the plain version for CPU tensors, and an
+    error for anything else — never the plain version for a CUDA tensor.
+    The kernel masks its own ragged edge, so P needs no padding.
+    score_only=True returns score/qend/wstart/wend only (pass 1 of the
+    two-pass alignment); qpen_pair ([P, L] int8 positive penalties)
+    enables the bowtie2 quality-scaled mismatch model."""
+    kind = q_pair.device.type
+    if kind == "cuda":
+        return cuda_sw.banded_align_cuda(
+            q_pair, qlens_pair, win_pair, scoring, band_width,
+            qpen=qpen_pair, score_only=score_only)
+    if kind == "cpu":
+        return banded_align_plain(q_pair, qlens_pair, win_pair, scoring,
+                                  band_width, qpen=qpen_pair,
+                                  score_only=score_only)
+    raise ValueError(f"banded DP: no implementation for tensors on "
+                     f"{q_pair.device}")
+
+
+def _prepare_pairs(
+    codes: torch.Tensor,
+    qlens: torch.Tensor,
+    strand: torch.Tensor,   # [B, C]
+    rc: torch.Tensor,       # [B, L] reverse complement (find_candidates)
+    qpen: Optional[torch.Tensor] = None,  # [B, L] mismatch penalties (fwd)
+) -> tuple:
+    """Per-candidate strand-selected queries, flattened to [B*C, L];
+    with qpen, the penalty plane rides along (reversed for rc-strand
+    candidates, since penalties follow the read base they qualify).
+    Returns (q_pair, qlens_pair, qpen_pair-or-None)."""
+    B, L = codes.shape
+    C = strand.shape[1]
+    is_rc = (strand == 1)[:, :, None]
+    q_pair = torch.where(is_rc, rc[:, None, :], codes[:, None, :])
+    q_pair = q_pair.reshape(B * C, L)
+    qlens_pair = qlens[:, None].expand(B, C).reshape(B * C).contiguous()
+    qpen_pair = None
+    if qpen is not None:
+        rpen = reverse_batch(qpen, qlens)
+        qpen_pair = torch.where(is_rc, rpen[:, None, :], qpen[:, None, :])
+        qpen_pair = qpen_pair.reshape(B * C, L)
+    return q_pair, qlens_pair, qpen_pair
+
+
+def _postprocess(
+    out: Dict[str, torch.Tensor],     # [B, C] banded outputs
+    cands: Dict[str, torch.Tensor],
+    winstart: torch.Tensor,
+    seq_idx: torch.Tensor,
+    seq_lo: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    tstart = winstart + out["wstart"] - seq_lo
+    tend = winstart + out["wend"] - seq_lo
+    valid = cands["valid"]
+    # drop duplicate alignments: same (seq, strand, tstart) found via two
+    # nearby candidate diagonals — keep the first (candidates are emitted
+    # in decreasing vote order). One [B, C, C] comparison, C is tiny.
+    C = valid.shape[1]
+    same = ((seq_idx[:, :, None] == seq_idx[:, None, :])
+            & (cands["strand"][:, :, None] == cands["strand"][:, None, :])
+            & (tstart[:, :, None] == tstart[:, None, :]))
+    c_iota = torch.arange(C, device=valid.device)
+    earlier = c_iota[None, :, None] > c_iota[None, None, :]
+    dup = (same & earlier & valid[:, None, :]).any(dim=2)
+    return dict(
+        valid=valid & ~dup,
+        score=out["score"],
+        seq_idx=seq_idx,
+        strand=cands["strand"],
+        tstart=tstart,
+        tend=tend,
+        qstart=out["qstart"],
+        qend=out["qend"],
+        matches=out["matches"],
+        mismatches=out["mismatches"],
+        gap_cols=out["gap_cols"],
+        gap_opens=out["gap_opens"],
+    )
+
+
+def _align_batch_stages(
+    index_arrays, pack_arrays, codes, qlens,
+    scoring: ScoringParams, seed_params: SeedParams, max_len: int,
+    quals: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Seed -> window gather -> banded extension -> postprocess, on the
+    device the inputs lie on. Returns [B, C] result tensors."""
+    B, L = codes.shape
+    C = seed_params.num_cands
+    D = seed_params.band_width
+    W = L + D - 1
+    pack_offsets = pack_arrays["offsets"]
+    cands = find_candidates(index_arrays, codes, qlens, seed_params, max_len)
+    winstart = cands["diag"] - D // 2
+    ref_win, seq_idx = gather_windows_packed(
+        pack_arrays["words"], pack_arrays["nmask"], pack_offsets, winstart,
+        W, center=cands["diag"] + qlens[:, None] // 2)
+    qpen = (quality_penalties(quals, scoring)
+            if scoring.qual_scaled and quals is not None else None)
+    q_pair, qlens_pair, qpen_pair = _prepare_pairs(
+        codes, qlens, cands["strand"], cands["rc"], qpen=qpen)
+    out = dispatch_banded_align(q_pair, qlens_pair, ref_win.reshape(B * C, W),
+                                scoring, D, qpen_pair=qpen_pair)
+    out = {k: v.reshape(B, C) for k, v in out.items()}
+    seq_lo = pack_offsets[seq_idx]
+    return _postprocess(out, cands, winstart, seq_idx, seq_lo)
+
+
+class Aligner:
+    """Aligner bound to one ReferencePack + SeedIndex, its tensors on
+    one device."""
+
+    def __init__(
+        self,
+        pack: ReferencePack,
+        index: SeedIndex,
+        scoring: ScoringParams,
+        seed_params: Optional[SeedParams] = None,
+        max_read_len: int = 128,
+        device="cuda",
+    ):
+        words, nmask = pack_words_host(pack.codes)
+        self._bind(
+            dict(bucket1=index.bucket1, bucket2=index.bucket2,
+                 positions2d=index.positions2d),
+            dict(words=words, nmask=nmask, offsets=pack.offsets),
+            scoring, seed_params, max_read_len, device)
+
+    @classmethod
+    def from_numpy(cls, index_arrays: Dict[str, np.ndarray],
+                   pack_arrays: Dict[str, np.ndarray],
+                   scoring: ScoringParams,
+                   seed_params: Optional[SeedParams] = None,
+                   max_read_len: int = 128, device="cuda") -> "Aligner":
+        """An aligner from database-derived arrays as numpy: index_arrays
+        bucket1, bucket2 ([NB, 24] int32), positions2d ([R, 8] int32);
+        pack_arrays words, nmask (uint32, as pack_words_host gives them)
+        and offsets ([S+1]). These are the arrays the JAX package's
+        Aligner holds, so both packages can be fed the same index."""
+        self = cls.__new__(cls)
+        self._bind(index_arrays, pack_arrays, scoring, seed_params,
+                   max_read_len, device)
+        return self
+
+    def _bind(self, index_arrays, pack_arrays, scoring, seed_params,
+              max_read_len, device) -> None:
+        self.device = resolve_device(device)
+        self.scoring = scoring
+        self.seed_params = seed_params or SeedParams()
+        self.max_read_len = max_read_len
+
+        def put(a, dtype):
+            return torch.from_numpy(
+                np.ascontiguousarray(np.asarray(a).astype(dtype))
+            ).to(self.device)
+
+        self.index_arrays = {k: put(index_arrays[k], np.int32)
+                             for k in ("bucket1", "bucket2", "positions2d")}
+        # uint32 words / masks held in int64 (torch's uint32 support is
+        # partial); offsets int64, as searchsorted wants matching dtypes
+        self.pack_arrays = {k: put(pack_arrays[k], np.int64)
+                            for k in ("words", "nmask", "offsets")}
+
+    def align_batch_device(self, codes: torch.Tensor, qlens: torch.Tensor,
+                           quals: Optional[torch.Tensor] = None):
+        return _align_batch_stages(
+            self.index_arrays, self.pack_arrays, codes, qlens,
+            self.scoring, self.seed_params, self.max_read_len, quals=quals)

@@ -1,0 +1,40 @@
+"""Guard: the port (every midas_tpu_torch module, and chip_smoke.py)
+imports neither JAX nor anything of the JAX package, and importing it
+touches no card."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import midas_tpu_torch
+names = ["midas_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(midas_tpu_torch.__path__,
+                                          "midas_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+import torch
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "midas_tpu" or m.startswith("midas_tpu."))
+print(json.dumps(dict(modules=names, bad=bad,
+                      cuda_initialized=torch.cuda.is_initialized())))
+"""
+
+
+def test_port_imports_no_jax_and_no_midas_tpu():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "midas_tpu_torch.profile.species" in got["modules"]
+    assert "midas_tpu_torch.cli.run_midas" in got["modules"]
+    assert got["bad"] == []
+    assert not got["cuda_initialized"]
