@@ -27,6 +27,27 @@ Phases, each printing one JSON line:
 6. cpu     — `run_midas species -n 2048` through the CLI on the card and
              on the CPU (plain versions): species_profile.txt,
              read_count.txt and the final SpeciesState must be identical.
+7. genes_data    — simulates a pangenome database (12 species + 3
+             related, 3 Mb genomes, 3,224 genome genes and 2,000
+             pangenome-only genes each), 131,072 x 100 bp reads from the
+             first 10 species, and builds the genes profiler over those
+             10 pangenomes (52,240 centroids, ~47 MB) on the card.
+8. genes_kernels — the genes path's two DP calls on its first batch,
+             captured from genes_update under LOCAL and GLOBAL scoring:
+             pass 1 (K3 with qpen, 8,192 reads x 4 candidates) and pass 2
+             (K2, one row per read), each equal to the plain version
+             field by field, and K3 equal to K2 on the fields both
+             compute. Kernel ms, plain ms and the bound.
+9. genes_main    — GenesProfiler.run over the 131,072 reads at batch
+             8,192: reads/s, K3 and K2 launches (each must equal the
+             number of batches), device-step ms of one genes_update with
+             a per-stage breakdown, peak device memory. Copy numbers are
+             checked against the simulator's truth.
+10. genes_cpu    — `run_midas genes -n 2048` through the CLI on the
+             phase-3 database's first 20 species, on the card and on the
+             CPU, in -m local and -m global: summary.txt, every
+             decompressed .genes.gz and the saved GenesState must be
+             identical.
 
 Then the kernels line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,6 +73,12 @@ N_SPECIES, RELATED, GENOME_LEN, GENE_LEN = 1100, 275, 30000, 900
 N_READS, BATCH, N_ABUNDANT = 65536, 8192, 20
 SMALL_P = 4096
 N_CPU_READS = 2048
+# the genes cell: a pangenome database at the size of a MIDAS genes run
+# over 10 selected species
+GENES_DB = dict(n_species=12, genome_len=3_000_000, gene_len=900,
+                n_extra_genes=2000, related_pairs=3, divergence=0.03, seed=1)
+N_GENES_SPECIES, N_GENES_READS = 10, 131072
+N_GENES_CPU_SPECIES = 20
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -190,7 +217,6 @@ def _main_batch_pairs(prof, fq):
     import torch
 
     from midas_tpu_torch.align import pipeline as pl
-    from midas_tpu_torch.align.seed import find_candidates, gather_windows_packed
     from midas_tpu_torch.io.batch import load_read_batches
 
     al = prof.aligner
@@ -198,17 +224,10 @@ def _main_batch_pairs(prof, fq):
                                     max_len=al.max_read_len)))
     codes = torch.from_numpy(b.codes).cuda()
     qlens = torch.from_numpy(b.lengths).cuda()
-    sp = al.seed_params
-    D, L = sp.band_width, codes.shape[1]
-    cands = find_candidates(al.index_arrays, codes, qlens, sp, al.max_read_len)
-    ref_win, _ = gather_windows_packed(
-        al.pack_arrays["words"], al.pack_arrays["nmask"],
-        al.pack_arrays["offsets"], cands["diag"] - D // 2, L + D - 1,
-        center=cands["diag"] + qlens[:, None] // 2)
-    q_pair, qlens_pair, _ = pl._prepare_pairs(codes, qlens, cands["strand"],
-                                              cands["rc"])
-    return (b, codes, qlens), (q_pair, qlens_pair,
-                               ref_win.reshape(q_pair.shape[0], L + D - 1))
+    *_, (q_pair, qlens_pair, ref_win, _) = pl._candidate_pairs(
+        al.index_arrays, al.pack_arrays, codes, qlens, al.scoring,
+        al.seed_params, al.max_read_len)
+    return (b, codes, qlens), (q_pair, qlens_pair, ref_win)
 
 
 def _small_case(seed, P, L=128, D=16):
@@ -243,8 +262,6 @@ def _small_case(seed, P, L=128, D=16):
 def phase_kernels(prof, fq):
     import torch
 
-    from midas_tpu_torch.align import cuda_sw
-    from midas_tpu_torch.align.banded import banded_align_plain
     from midas_tpu_torch.align.params import (GLOBAL_SCORING, LOCAL_SCORING,
                                               MARKER_SCORING)
 
@@ -257,41 +274,58 @@ def phase_kernels(prof, fq):
         cases.append(("K3", name, sc, small[:3], small[3], True))
     variants = []
     for kname, sname, sc, (q, ql, win), qpen, so in cases:
-        P, L = q.shape
-
-        def kern():
-            return cuda_sw.banded_align_cuda(q, ql, win, sc, qpen=qpen,
-                                             score_only=so)
-
-        def plain():
-            return banded_align_plain(q, ql, win, sc, qpen=qpen,
-                                      score_only=so)
-
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = 0.0
-        for k in want:
-            if not torch.equal(got[k], want[k]):
-                fail(f"{kname} {sname} qpen={qpen is not None} "
-                     f"score_only={so}: field {k} differs from the plain "
-                     "version")
-            err = max(err, float((got[k].double() - want[k].double())
-                                 .abs().max()))
-        ms, _ = cuda_ms(kern, 20)
-        plain_ms, _ = cuda_ms(plain, 1)
-        bound, by, cells, ops, nbytes = dp_bound(
-            ql.cpu().numpy(), P, L, 1 if so else 6, sc.mode == "local",
-            qpen is not None)
-        v = dict(variant=kname, scoring=sname, qual_pen=qpen is not None,
-                 score_only=so, P=P, L=L, equal=True, max_abs_err=err,
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                 cells=cells, ops=ops, bytes=nbytes,
-                 ops_per_cell=ops_per_cell(1 if so else 6,
-                                           sc.mode == "local",
-                                           qpen is not None))
+        v = _check_variant(kname, sname, sc, q, ql, win, qpen, so,
+                           shape="main path batch" if kname == "K1"
+                           else "synthetic")
+        v.pop("_out")
         emit("kernels", **v)
         variants.append(v)
     return variants
+
+
+def _check_variant(kname, sname, sc, q, ql, win, qpen, so, **extra):
+    """One kernel variant on these inputs: equal to the plain version
+    field by field (fails otherwise), its ms by CUDA events (mean of 20
+    after a warm-up), the plain version's ms (one call) and the bound.
+    Returns the variant's record (and the kernel's outputs under
+    "_out", for the caller's own checks)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align.banded import banded_align_plain
+
+    P, L = q.shape
+
+    def kern():
+        return cuda_sw.banded_align_cuda(q, ql, win, sc, qpen=qpen,
+                                         score_only=so)
+
+    def plain():
+        return banded_align_plain(q, ql, win, sc, qpen=qpen, score_only=so)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            fail(f"{kname} {sname} qpen={qpen is not None} "
+                 f"score_only={so} P={P}: field {k} differs from the plain "
+                 "version")
+        err = max(err, float((got[k].double() - want[k].double())
+                             .abs().max()))
+    ms, _ = cuda_ms(kern, 20)
+    plain_ms, _ = cuda_ms(plain, 1)
+    n_stats, local = 1 if so else 6, sc.mode == "local"
+    bound, by, cells, ops, nbytes = dp_bound(
+        ql.cpu().numpy(), P, L, n_stats, local, qpen is not None)
+    return dict(variant=kname, key=cuda_sw.variant_key(n_stats,
+                                                       qpen is not None),
+                scoring=sname, qual_pen=qpen is not None, score_only=so,
+                P=P, L=L, equal=True, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, cells=cells,
+                ops=ops, bytes=nbytes,
+                ops_per_cell=ops_per_cell(n_stats, local, qpen is not None),
+                **extra, _out=got)
 
 
 def phase_main(prof, fq, truth):
@@ -304,16 +338,16 @@ def phase_main(prof, fq, truth):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_batches = -(-N_READS // BATCH)
-    cuda_sw.banded_align_cuda.launches = 0
+    cuda_sw.LAUNCHES.clear()
     t0 = time.perf_counter()
     abundance = prof.run([fq], batch_size=BATCH)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = cuda_sw.banded_align_cuda.launches
+    launches = dict(cuda_sw.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    if launches != n_batches:
-        fail(f"main path launched banded_sw {launches} times for "
-             f"{n_batches} batches")
+    if launches != {"K1": n_batches}:
+        fail(f"main path launched banded_sw {launches} for "
+             f"{n_batches} batches (want K1 only, once per batch)")
     out = os.path.join(WORK, "main_species_profile.txt")
     write_abundance(out, abundance)
 
@@ -416,17 +450,296 @@ def phase_cpu_vs_card(comm, fq):
                 open(os.path.join(cpu, f), "rb") as b:
             if a.read() != b.read():
                 fail(f"card and CPU differ in {f}")
-    za = np.load(os.path.join(card, "species/temp/state.npz"))
-    zb = np.load(os.path.join(cpu, "species/temp/state.npz"))
-    keys = sorted(k for k in za.files if k != "__meta__")
-    if keys != sorted(k for k in zb.files if k != "__meta__"):
-        fail("card and CPU states hold different fields")
-    for k in keys:
-        if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
-            fail(f"card and CPU SpeciesState differ in {k}")
+    keys, za = _same_state(os.path.join(card, "species/temp/state.npz"),
+                           os.path.join(cpu, "species/temp/state.npz"),
+                           "card and CPU SpeciesState")
     emit("cpu", reads=N_CPU_READS, identical=True, state_fields=keys,
          amb_rows=int(za["amb_n"]), card_seconds=round(t_card, 2),
          cpu_seconds=round(t_cpu, 2))
+
+
+def phase_genes_data():
+    from midas_tpu_torch.db.layout import Database
+    from midas_tpu_torch.profile.genes import GenesProfiler
+    from midas_tpu_torch.testkit.simulate import simulate_db, simulate_reads
+
+    t0 = time.time()
+    comm = simulate_db(os.path.join(WORK, "genes_db"), **GENES_DB)
+    fq = os.path.join(WORK, "genes_reads.fq.gz")
+    n_sp = len(comm.species)
+    abund = ([1.0 / N_GENES_SPECIES] * N_GENES_SPECIES
+             + [0.0] * (n_sp - N_GENES_SPECIES))
+    simulate_reads(comm, fq, n_reads=N_GENES_READS, read_len=100,
+                   error_rate=0.005, indel_rate=0.01, seed=8,
+                   abundances=abund)
+    t_sim = time.time() - t0
+    t0 = time.time()
+    ids = [sp.species_id for sp in comm.species[:N_GENES_SPECIES]]
+    prof = GenesProfiler(Database(comm.db_dir), ids, device="cuda")
+    t_prof = time.time() - t0
+    al = prof.aligner
+    idx_bytes = sum(t.numel() * t.element_size()
+                    for d in (al.index_arrays, al.pack_arrays)
+                    for t in d.values())
+    emit("genes_data", species=N_GENES_SPECIES, centroids=prof.pack.num_seqs,
+         pangenome_pack_mb=round(prof.pack.total_len / 1e6, 2),
+         index_on_card_mb=round(idx_bytes / 2**20, 1), reads=N_GENES_READS,
+         simulate_seconds=round(t_sim, 1),
+         profiler_setup_seconds=round(t_prof, 1))
+    return comm, fq, prof
+
+
+def _first_batch(al, fq, fields):
+    """The first batch of fq on the card, as the main path uploads it."""
+    import torch
+
+    from midas_tpu_torch.io.batch import load_read_batches
+
+    b = next(iter(load_read_batches([fq], batch_size=BATCH,
+                                    max_len=al.max_read_len)))
+    return b, [torch.from_numpy(getattr(b, f)).cuda() for f in fields]
+
+
+def _genes_step(prof, scoring, b, arrays, state=None):
+    """One genes_update of batch b under `scoring` (returns its state)."""
+    import torch
+
+    from midas_tpu_torch.profile import device_steps as ds
+
+    al = prof.aligner
+    G = prof.pack.num_seqs
+    table = torch.from_numpy(ds.score_min_table(scoring,
+                                                al.max_read_len)).cuda()
+    state = state or ds.genes_init(G, "cuda")
+    codes, quals, lengths, mean_qual = arrays
+    return ds.genes_update(
+        state, al.index_arrays, al.pack_arrays, G, codes, quals, lengths,
+        mean_qual, b.n_reads, scoring=scoring, seed_params=al.seed_params,
+        max_len=al.max_read_len, mapid=float(prof.mapid),
+        readq=float(prof.readq), min_mapq=int(prof.mapq),
+        aln_cov=float(prof.aln_cov), smin_table=table)
+
+
+def _captured_dp_calls(fn):
+    """Run fn() with the kernel wrapper recording the inputs of every
+    launch: [(args, kwargs)], in launch order."""
+    from midas_tpu_torch.align import cuda_sw
+
+    real = cuda_sw.banded_align_cuda
+    calls = []
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    cuda_sw.banded_align_cuda = record
+    try:
+        fn()
+    finally:
+        cuda_sw.banded_align_cuda = real
+    return calls
+
+
+def phase_genes_kernels(prof, fq):
+    """K3 (pass 1) and K2 (pass 2) at the genes path's shapes."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
+
+    b, arrays = _first_batch(prof.aligner, fq,
+                             ("codes", "quals", "lengths", "mean_qual"))
+    variants = []
+    for sname, sc in (("local", LOCAL_SCORING), ("global", GLOBAL_SCORING)):
+        calls = _captured_dp_calls(lambda: _genes_step(prof, sc, b, arrays))
+        if len(calls) != 2:
+            fail(f"genes_update ({sname}) launched the DP {len(calls)} "
+                 "times, not twice")
+        (p1, k1), (p2, k2) = calls
+        if not (k1["score_only"] and k1["qpen"] is not None
+                and not k2["score_only"] and k2["qpen"] is not None):
+            fail(f"genes_update ({sname}) did not run K3 with qpen, then K2")
+        v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
+                            shape="genes pass 1")
+        v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
+                            shape="genes pass 2")
+        # K3 agrees with K2 on the fields both compute, on pass 1's pairs
+        full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
+        k3_out = v3.pop("_out")
+        v2.pop("_out")
+        for k in k3_out:
+            if not torch.equal(k3_out[k], full[k]):
+                fail(f"K3 and K2 differ in {k} ({sname}, genes pass 1)")
+        v3["equal_to_k2"] = True
+        for v in (v3, v2):
+            emit("genes_kernels", **v)
+            variants.append(v)
+    return variants
+
+
+def phase_genes_main(comm, prof, fq):
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+
+    prof.run([fq], max_reads=BATCH, batch_size=BATCH)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_batches = -(-N_GENES_READS // BATCH)
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = prof.run([fq], batch_size=BATCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cuda_sw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"K3_qpen": n_batches, "K2": n_batches}:
+        fail(f"genes path launched banded_sw {launches} for {n_batches} "
+             "batches (want K3 with qpen and K2, once each per batch)")
+
+    # the repo's own check (tests/test_genes_snps.py::test_genes_outputs):
+    # the simulator's truth. Genome genes of a selected species sit near
+    # copy number 1; pangenome-only genes get no reads at all.
+    name_idx = {n: i for i, n in enumerate(prof.pack.names)}
+    per_species = []
+    for si, sp in enumerate(comm.species[:N_GENES_SPECIES]):
+        on = np.array([name_idx[g["gene_id"]] for g in sp.genes
+                       if g["scaffold_id"] is not None])
+        off = np.array([name_idx[g["gene_id"]] for g in sp.genes
+                        if g["scaffold_id"] is None])
+        med = float(np.median(res["copies"][on]))
+        mapped = int(res["mapped_reads"][prof.gene_species == si].sum())
+        if not np.isfinite(res["copies"]).all():
+            fail("non-finite copy numbers")
+        if not 0.5 < med < 2.0 or mapped == 0 or res["depth"][off].any():
+            fail(f"genes disagree with the truth for {sp.species_id}: "
+                 f"median copy number {med}, mapped reads {mapped}, "
+                 f"{int((res['depth'][off] > 0).sum())} pangenome-only "
+                 "genes covered")
+        per_species.append(dict(species=sp.species_id, median_copies=med,
+                                mapped_reads=mapped,
+                                marker_cov=float(res["marker_cov"][si])))
+    prof.write_results(os.path.join(WORK, "genes_main"))
+    step_ms, stages = _genes_device_step(prof, fq)
+    emit("genes_main", reads=N_GENES_READS, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=N_GENES_READS / dt,
+         banded_sw_launches=launches, device_step_ms=step_ms,
+         device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
+         max_memory_allocated=peak,
+         aligned_reads=int(res["aligned_reads"].sum()),
+         mapped_reads=int(res["mapped_reads"].sum()),
+         truth=per_species)
+    return launches
+
+
+def _genes_device_step(prof, fq):
+    """Mean device ms of genes_update on one batch, and a per-stage
+    breakdown of the same work, by CUDA events. Stages without a call of
+    their own are differences of two timed calls."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align import pipeline as pl
+    from midas_tpu_torch.align.seed import find_candidates, gather_windows_packed
+    from midas_tpu_torch.profile import device_steps as ds
+
+    al = prof.aligner
+    sp, sc = al.seed_params, al.scoring
+    b, arrays = _first_batch(al, fq, ("codes", "quals", "lengths",
+                                      "mean_qual"))
+    codes, quals, qlens, mean_qual = arrays
+    state = ds.genes_init(prof.pack.num_seqs, "cuda")
+    step_ms, _ = cuda_ms(lambda: _genes_step(prof, sc, b, arrays, state), 5)
+    (p1, k1), (p2, k2) = _captured_dp_calls(
+        lambda: _genes_step(prof, sc, b, arrays))
+    D, L = sp.band_width, codes.shape[1]
+    table = torch.from_numpy(ds.score_min_table(sc, al.max_read_len)).cuda()
+    r = {}
+    r["seed"], c = cuda_ms(lambda: find_candidates(
+        al.index_arrays, codes, qlens, sp, al.max_read_len), 5)
+    r["window_gather"], _ = cuda_ms(lambda: gather_windows_packed(
+        al.pack_arrays["words"], al.pack_arrays["nmask"],
+        al.pack_arrays["offsets"], c["diag"] - D // 2, L + D - 1,
+        center=c["diag"] + qlens[:, None] // 2), 5)
+    r["k3"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p1, **k1), 5)
+    pass1_ms, (out1, aux) = cuda_ms(lambda: pl.align_candidates_score(
+        al.index_arrays, al.pack_arrays, codes, qlens, sc, sp,
+        al.max_read_len, quals=quals), 5)
+    r["pair_prep_and_dedup"] = pass1_ms - r["seed"] - r["window_gather"] \
+        - r["k3"]
+    r["best_hit_mapq"], (_, best_col, _) = cuda_ms(
+        lambda: ds.best_hit_device(out1, qlens, sc, table), 5)
+    r["k2"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p2, **k2), 5)
+    pass2_ms, _ = cuda_ms(lambda: pl.align_chosen_full(
+        al.pack_arrays, aux, codes, qlens, best_col, sc, sp), 5)
+    r["pass2_gather"] = pass2_ms - r["k2"]
+    r["keep_and_scatter"] = step_ms - pass1_ms - r["best_hit_mapq"] - pass2_ms
+    return step_ms, r
+
+
+def _same_genes_outputs(a, b, what):
+    """Fail unless two genes output directories hold the same
+    summary.txt, decompressed .genes.gz files and saved state."""
+    import gzip
+
+    for f in ["genes/summary.txt", "genes/species.txt"] + sorted(
+            os.path.join("genes/output", n)
+            for n in os.listdir(os.path.join(a, "genes/output"))):
+        op = gzip.open if f.endswith(".gz") else open
+        with op(os.path.join(a, f), "rb") as x, op(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"{what}: {f} differs")
+    keys, za = _same_state(os.path.join(a, "genes/temp/state.npz"),
+                           os.path.join(b, "genes/temp/state.npz"),
+                           f"{what}: GenesState")
+    return keys, int(za["mapped_reads"][:-1].sum())   # without the dump row
+
+
+def _same_state(a, b, what):
+    """Fail unless two saved states hold the same fields, dtypes and
+    values. Returns (field names, the first state)."""
+    za, zb = np.load(a), np.load(b)
+    keys = sorted(k for k in za.files if k != "__meta__")
+    if keys != sorted(k for k in zb.files if k != "__meta__"):
+        fail(f"{what}: the states hold different fields")
+    for k in keys:
+        if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
+            fail(f"{what} differs in {k}")
+    return keys, za
+
+
+def phase_genes_cpu(comm, fq):
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    ids = ",".join(sp.species_id for sp in comm.species[:N_GENES_CPU_SPECIES])
+    result = {}
+    for mode in ("local", "global"):
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(WORK, f"genes_cli_{mode}_{dev}")
+            cuda_sw.LAUNCHES.clear()
+            t0 = time.time()
+            run_midas(["genes", out, "-1", fq, "-d", comm.db_dir,
+                       "-n", str(N_CPU_READS), "--species_id", ids,
+                       "-m", mode, "--device", dev])
+            secs[dev] = round(time.time() - t0, 2)
+            outs[dev] = out
+            if dev == "cuda":
+                card_launches = dict(cuda_sw.LAUNCHES)
+            elif cuda_sw.LAUNCHES:
+                fail("the CPU run launched the kernel")
+        n_b = -(-N_CPU_READS // 8192)
+        if card_launches != {"K3_qpen": n_b, "K2": n_b}:
+            fail(f"genes -m {mode} on the card launched {card_launches}")
+        keys, mapped = _same_genes_outputs(outs["cuda"], outs["cpu"],
+                                           f"genes -m {mode}, card vs CPU")
+        result[mode] = dict(identical=True, state_fields=keys,
+                            mapped_reads=mapped, card_launches=card_launches,
+                            card_seconds=secs["cuda"], cpu_seconds=secs["cpu"])
+    emit("genes_cpu", reads=N_CPU_READS, species=N_GENES_CPU_SPECIES,
+         **result)
+    return result
 
 
 def main():
@@ -439,14 +752,32 @@ def main():
     phase_build()
     comm, fq, truth, prof = phase_data()
     variants = phase_kernels(prof, fq)
-    launches = phase_main(prof, fq, truth)
+    species_launches = phase_main(prof, fq, truth)
     phase_cpu_vs_card(comm, fq)
+    del prof
+    torch.cuda.empty_cache()
+    gcomm, gfq, gprof = phase_genes_data()
+    variants += phase_genes_kernels(gprof, gfq)
+    genes_launches = phase_genes_main(gcomm, gprof, gfq)
+    genes_cli = phase_genes_cpu(comm, fq)
+    by_path = {"species": species_launches, "genes": genes_launches,
+               "genes_cli_global": genes_cli["global"]["card_launches"]}
+    for v in variants:
+        path = ("species" if v["shape"] == "main path batch" else
+                "genes" if v["shape"].startswith("genes") and
+                v["scoring"] == "local" else
+                "genes_cli_global" if v["shape"].startswith("genes") else None)
+        v["path"] = path
+        v["launches"] = by_path[path].get(v["key"], 0) if path else 0
     k1 = variants[0]
     print(json.dumps({"kernels": [dict(
         name="banded_sw", route="cuda",
         source="midas_tpu_torch/csrc/banded_sw.cu",
         replaces="midas_tpu/align/pallas_sw.py:328",
-        launches=launches, max_abs_err=max(v["max_abs_err"] for v in variants),
+        launches=sum(species_launches.values())
+        + sum(genes_launches.values()),
+        launches_by_path=by_path,
+        max_abs_err=max(v["max_abs_err"] for v in variants),
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=None,
         equal=all(v["equal"] for v in variants), tolerance=0.0,

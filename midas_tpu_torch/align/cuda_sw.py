@@ -13,6 +13,7 @@ imported from CUDA when this module is imported.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import subprocess
@@ -33,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+# launches of the kernel per variant (variant_key)
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -100,7 +103,8 @@ def banded_align_cuda(
 ) -> Dict[str, torch.Tensor]:
     """Launch the kernel on the current stream of the inputs' card.
     Same contract and same results, bit for bit, as banded_align_plain.
-    Counts its launches in banded_align_cuda.launches."""
+    Counts its launches per variant in LAUNCHES, keyed by
+    variant_key(n_stats, qual_pen)."""
     device = query.device
     if device.type != "cuda":
         raise ValueError(f"banded_sw: kernel inputs must be CUDA tensors, "
@@ -135,11 +139,19 @@ def banded_align_cuda(
         if rc != 0:
             raise RuntimeError(f"banded_sw: launch failed with CUDA error "
                                f"{rc}")
-        banded_align_cuda.launches += 1
+        LAUNCHES[variant_key(1 if score_only else 6, qpen is not None)] += 1
     out = {"score": score}
     out.update(zip(fields[1:], stats.unbind(0)))
     return out
 
 
-banded_align_cuda.launches = 0
+def variant_key(n_stats: int, qual_pen: bool) -> str:
+    """The name a launch is counted under: the Pallas kernel's variants
+    (midas_tpu/align/pallas_sw.py) K1 (full statistics, flat mismatch),
+    K2 (full statistics, quality-scaled mismatch) and K3 (score only),
+    with K3's quality-scaled form told apart as K3_qpen."""
+    if n_stats == 1:
+        return "K3_qpen" if qual_pen else "K3"
+    return "K2" if qual_pen else "K1"
+
 

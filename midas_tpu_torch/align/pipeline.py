@@ -96,6 +96,21 @@ def _prepare_pairs(
     return q_pair, qlens_pair, qpen_pair
 
 
+def _drop_duplicates(valid, seq_idx, strand, tstart) -> torch.Tensor:
+    """Drop duplicate alignments: same (seq, strand, tstart) found via
+    two nearby candidate diagonals — keep the first (candidates are
+    emitted in decreasing vote order). One [B, C, C] comparison, C is
+    tiny. Returns the new valid mask."""
+    C = valid.shape[1]
+    same = ((seq_idx[:, :, None] == seq_idx[:, None, :])
+            & (strand[:, :, None] == strand[:, None, :])
+            & (tstart[:, :, None] == tstart[:, None, :]))
+    c_iota = torch.arange(C, device=valid.device)
+    earlier = c_iota[None, :, None] > c_iota[None, None, :]
+    dup = (same & earlier & valid[:, None, :]).any(dim=2)
+    return valid & ~dup
+
+
 def _postprocess(
     out: Dict[str, torch.Tensor],     # [B, C] banded outputs
     cands: Dict[str, torch.Tensor],
@@ -105,19 +120,9 @@ def _postprocess(
 ) -> Dict[str, torch.Tensor]:
     tstart = winstart + out["wstart"] - seq_lo
     tend = winstart + out["wend"] - seq_lo
-    valid = cands["valid"]
-    # drop duplicate alignments: same (seq, strand, tstart) found via two
-    # nearby candidate diagonals — keep the first (candidates are emitted
-    # in decreasing vote order). One [B, C, C] comparison, C is tiny.
-    C = valid.shape[1]
-    same = ((seq_idx[:, :, None] == seq_idx[:, None, :])
-            & (cands["strand"][:, :, None] == cands["strand"][:, None, :])
-            & (tstart[:, :, None] == tstart[:, None, :]))
-    c_iota = torch.arange(C, device=valid.device)
-    earlier = c_iota[None, :, None] > c_iota[None, None, :]
-    dup = (same & earlier & valid[:, None, :]).any(dim=2)
     return dict(
-        valid=valid & ~dup,
+        valid=_drop_duplicates(cands["valid"], seq_idx, cands["strand"],
+                               tstart),
         score=out["score"],
         seq_idx=seq_idx,
         strand=cands["strand"],
@@ -132,6 +137,31 @@ def _postprocess(
     )
 
 
+def _candidate_pairs(index_arrays, pack_arrays, codes, qlens,
+                     scoring: ScoringParams, seed_params: SeedParams,
+                     max_len: int, quals: Optional[torch.Tensor] = None):
+    """Seed -> window gather -> per-candidate DP inputs, the front of
+    both alignment paths. Returns (cands, winstart, seq_idx, qpen,
+    dp_inputs) with dp_inputs = (q_pair [B*C, L], qlens_pair [B*C],
+    ref_win [B*C, W], qpen_pair or None); qpen is set when the scoring
+    is quality-scaled and quals are given."""
+    B, L = codes.shape
+    C = seed_params.num_cands
+    D = seed_params.band_width
+    W = L + D - 1
+    cands = find_candidates(index_arrays, codes, qlens, seed_params, max_len)
+    winstart = cands["diag"] - D // 2
+    ref_win, seq_idx = gather_windows_packed(
+        pack_arrays["words"], pack_arrays["nmask"], pack_arrays["offsets"],
+        winstart, W, center=cands["diag"] + qlens[:, None] // 2)
+    qpen = (quality_penalties(quals, scoring)
+            if scoring.qual_scaled and quals is not None else None)
+    q_pair, qlens_pair, qpen_pair = _prepare_pairs(
+        codes, qlens, cands["strand"], cands["rc"], qpen=qpen)
+    return cands, winstart, seq_idx, qpen, (
+        q_pair, qlens_pair, ref_win.reshape(B * C, W), qpen_pair)
+
+
 def _align_batch_stages(
     index_arrays, pack_arrays, codes, qlens,
     scoring: ScoringParams, seed_params: SeedParams, max_len: int,
@@ -139,24 +169,14 @@ def _align_batch_stages(
 ) -> Dict[str, torch.Tensor]:
     """Seed -> window gather -> banded extension -> postprocess, on the
     device the inputs lie on. Returns [B, C] result tensors."""
-    B, L = codes.shape
-    C = seed_params.num_cands
-    D = seed_params.band_width
-    W = L + D - 1
-    pack_offsets = pack_arrays["offsets"]
-    cands = find_candidates(index_arrays, codes, qlens, seed_params, max_len)
-    winstart = cands["diag"] - D // 2
-    ref_win, seq_idx = gather_windows_packed(
-        pack_arrays["words"], pack_arrays["nmask"], pack_offsets, winstart,
-        W, center=cands["diag"] + qlens[:, None] // 2)
-    qpen = (quality_penalties(quals, scoring)
-            if scoring.qual_scaled and quals is not None else None)
-    q_pair, qlens_pair, qpen_pair = _prepare_pairs(
-        codes, qlens, cands["strand"], cands["rc"], qpen=qpen)
-    out = dispatch_banded_align(q_pair, qlens_pair, ref_win.reshape(B * C, W),
-                                scoring, D, qpen_pair=qpen_pair)
+    B, C = codes.shape[0], seed_params.num_cands
+    cands, winstart, seq_idx, _, (q, ql, win, qp) = _candidate_pairs(
+        index_arrays, pack_arrays, codes, qlens, scoring, seed_params,
+        max_len, quals)
+    out = dispatch_banded_align(q, ql, win, scoring, seed_params.band_width,
+                                qpen_pair=qp)
     out = {k: v.reshape(B, C) for k, v in out.items()}
-    seq_lo = pack_offsets[seq_idx]
+    seq_lo = pack_arrays["offsets"][seq_idx]
     return _postprocess(out, cands, winstart, seq_idx, seq_lo)
 
 
@@ -220,3 +240,72 @@ class Aligner:
         return _align_batch_stages(
             self.index_arrays, self.pack_arrays, codes, qlens,
             self.scoring, self.seed_params, self.max_read_len, quals=quals)
+
+
+def align_candidates_score(
+    index_arrays, pack_arrays, codes, qlens,
+    scoring: ScoringParams, seed_params: SeedParams, max_len: int,
+    quals: Optional[torch.Tensor] = None,
+):
+    """Pass 1 of the two-pass alignment: seed + score-only banded DP over
+    every candidate (the kernel's K3 variant; with quals and a
+    quality-scaled scoring, its qpen form). Returns (out1, aux):
+
+    out1 — [B, C] planes sufficient for best-hit selection, MAPQ and
+    duplicate-drop: valid, score, seq_idx, strand, tstart, tend, qend.
+    aux  — what pass 2 (align_chosen_full) needs to re-align just the
+    chosen candidate with full statistics: winstart, rc, strand, qpen.
+
+    Scores are identical to _align_batch_stages' (same DP, fewer stat
+    planes), so selection is bit-equal; the full-statistics DP then runs
+    over B rows instead of B*C."""
+    B, C = codes.shape[0], seed_params.num_cands
+    cands, winstart, seq_idx, qpen, (q, ql, win, qp) = _candidate_pairs(
+        index_arrays, pack_arrays, codes, qlens, scoring, seed_params,
+        max_len, quals)
+    out = dispatch_banded_align(q, ql, win, scoring, seed_params.band_width,
+                                score_only=True, qpen_pair=qp)
+    out = {k: v.reshape(B, C) for k, v in out.items()}
+    seq_lo = pack_arrays["offsets"][seq_idx]
+    tstart = winstart + out["wstart"] - seq_lo
+    tend = winstart + out["wend"] - seq_lo
+    out1 = dict(valid=_drop_duplicates(cands["valid"], seq_idx,
+                                       cands["strand"], tstart),
+                score=out["score"], seq_idx=seq_idx, strand=cands["strand"],
+                tstart=tstart, tend=tend, qend=out["qend"])
+    aux = dict(winstart=winstart, rc=cands["rc"], strand=cands["strand"],
+               qpen=qpen)
+    return out1, aux
+
+
+def align_chosen_full(
+    pack_arrays, aux, codes, qlens, best_col,
+    scoring: ScoringParams, seed_params: SeedParams,
+):
+    """Pass 2: full-statistics banded DP over each read's CHOSEN
+    candidate only ([B] rows, padding rows included; the kernel's K2
+    variant under a quality-scaled scoring). best_col [B] int64.
+    Returns [B] planes: score, qstart, qend, matches, mismatches,
+    gap_cols, gap_opens, tstart, tend."""
+    B, L = codes.shape
+    D = seed_params.band_width
+    W = L + D - 1
+    pack_offsets = pack_arrays["offsets"]
+    col = best_col[:, None]
+    winstart_b = torch.gather(aux["winstart"], 1, col)           # [B, 1]
+    strand_b = torch.gather(aux["strand"], 1, col)[:, 0]         # [B]
+    ref_win, seq_idx = gather_windows_packed(
+        pack_arrays["words"], pack_arrays["nmask"], pack_offsets, winstart_b,
+        W, center=winstart_b + D // 2 + qlens[:, None] // 2)   # [B,1,W], [B,1]
+    is_rc = (strand_b == 1)[:, None]
+    q_best = torch.where(is_rc, aux["rc"], codes)
+    qpen_best = None
+    if aux.get("qpen") is not None:
+        qpen_best = torch.where(is_rc, reverse_batch(aux["qpen"], qlens),
+                                aux["qpen"])
+    out = dispatch_banded_align(q_best, qlens, ref_win.reshape(B, W),
+                                scoring, D, qpen_pair=qpen_best)
+    seq_lo = pack_offsets[seq_idx[:, 0]]
+    out["tstart"] = winstart_b[:, 0] + out["wstart"] - seq_lo
+    out["tend"] = winstart_b[:, 0] + out["wend"] - seq_lo
+    return out

@@ -43,12 +43,28 @@ class DeviceBatch:
         self.global_index = index if global_index is None else global_index
 
 
+def trim_batch(batch, trim: int) -> None:
+    """Drop `trim` bases from the 3' end of every read of a ReadBatch, in
+    place. The readq filter's mean quality is over the read as aligned
+    (the reference's np.mean(aln.query_qualities) after --trim3,
+    midas/run/genes.py:122,160), so the trimmed bases' qualities leave
+    the mean; the quality plane itself is kept as parsed."""
+    batch.lengths = np.maximum(batch.lengths - trim, 0).astype(np.int32)
+    L = batch.codes.shape[1]
+    keep = np.arange(L)[None, :] < batch.lengths[:, None]
+    batch.codes[~keep] = 4
+    qs = np.where(keep, batch.quals, 0).astype(np.float64)
+    n = np.maximum(batch.lengths, 1).astype(np.float64)
+    batch.mean_qual = (qs.sum(axis=1) / n).astype(np.float32)
+
+
 def prefetch_device_batches(
     batches: Iterator,
     fields: Sequence[str] = ("codes", "lengths"),
     device="cuda",
     prefetch: int = 3,
     skip_batches: int = 0,
+    trim: int = 0,
 ) -> Iterator[DeviceBatch]:
     """Parse + upload in a background thread, `prefetch` batches deep.
 
@@ -57,6 +73,8 @@ def prefetch_device_batches(
     tensors on `device`. skip_batches parses and discards the
     first k batches without uploading (checkpoint resume: the stream is
     deterministic, so batch k+1 onward reproduce the original run).
+    trim applies the reference's --trim3 semantics (genes.py:122) before
+    upload (trim_batch).
 
     Exceptions in the producer re-raise in the consumer. If the consumer
     abandons the generator early, the producer notices via a stop flag
@@ -98,6 +116,8 @@ def prefetch_device_batches(
                     return
                 if bi < skip_batches:
                     continue
+                if trim:
+                    trim_batch(batch, trim)
                 arrays, done = upload(batch)
                 total_bp = int(batch.lengths[: batch.n_reads].sum())
                 db = DeviceBatch(batch.n_reads, total_bp, arrays, bi,

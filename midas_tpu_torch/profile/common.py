@@ -1,0 +1,52 @@
+"""Shared pieces of the genes/snps per-sample pipelines: species
+selection bookkeeping (genes.py:32-48, snps.py:38-53) and the choice of
+read-batch stream. Single process; mate-paired streams are not yet
+ported."""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List
+
+from midas_tpu_torch.db.layout import Database
+from midas_tpu_torch.profile.species import select_species
+
+PAIRED_NOT_PORTED = ("paired-end reads (-2 / --interleaved) are not yet "
+                     "ported to midas_tpu_torch")
+
+
+def resolve_species_list(args: Dict, db: Database, subdir: str) -> List[str]:
+    """Reference semantics (genes.py:32-48): with --build_db, select
+    species from the species profile and persist <outdir>/<subdir>/
+    species.txt; otherwise reuse the persisted list."""
+    splist = os.path.join(args["outdir"], subdir, "species.txt")
+    if args.get("build_db"):
+        ids = select_species(
+            db, args["outdir"],
+            species_cov=args.get("species_cov"),
+            species_topn=args.get("species_topn"),
+            species_id=args.get("species_id"),
+        )
+        with open(splist, "w") as f:
+            for sid in ids:
+                f.write(sid + "\n")
+        return ids
+    if os.path.isfile(splist):
+        with open(splist) as f:
+            return [line.rstrip() for line in f if line.rstrip()]
+    return []
+
+
+def select_batches(read_paths, batch_size: int, max_len: int, max_reads,
+                   paired: bool = False, interleaved: bool = False,
+                   read_length=None):
+    """The batch stream: plain concatenated single-end reads (bowtie2's
+    -U input). The mate-paired stream (-1/-2, --interleaved; reference
+    invocations midas/run/genes.py:127-132) is not yet ported."""
+    from midas_tpu_torch.io.batch import load_read_batches
+
+    if paired or interleaved:
+        raise NotImplementedError(PAIRED_NOT_PORTED)
+    return load_read_batches(read_paths, batch_size=batch_size,
+                             max_len=max_len, max_reads=max_reads,
+                             read_length=read_length)

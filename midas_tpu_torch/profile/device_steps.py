@@ -14,7 +14,8 @@ JAX package sums in float32, exact only below 2^24 bp per species), and
 the stream rank amb_ord is int64 (int32 overflows past 2^31 reads).
 Results are equal wherever the JAX package is exact.
 
-Only the species part is ported so far.
+The species and the single-end genes steps are ported; the snps step
+and mate pairing are not yet.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from midas_tpu_torch.align import params as ap
 from midas_tpu_torch.align.params import ScoringParams
-from midas_tpu_torch.align.pipeline import _align_batch_stages
+from midas_tpu_torch.align.pipeline import (_align_batch_stages,
+                                            align_candidates_score,
+                                            align_chosen_full)
 from midas_tpu_torch.align.seed import SeedParams
 
 NEG_INF = -1e30
@@ -50,6 +54,152 @@ def _append_rows(buf: torch.Tensor, n: torch.Tensor, rows: torch.Tensor,
     dest = torch.where(is_row, (n + rank).clamp(max=cap), cap)
     buf.index_copy_(0, dest, rows.to(buf.dtype))
     return n + is_row.sum()
+
+
+def score_min_table(scoring: ScoringParams, max_len: int) -> np.ndarray:
+    """bowtie2's scMin as an integer per read length: [max_len + 1] int64,
+    entry L = trunc(score_min(max(L, 1))), built once on the host and
+    indexed by qlen on the device.
+
+    The values repeat the JAX package's float32 device arithmetic
+    (midas_tpu score_min_device + jnp.trunc): glocal -0.6 - 0.6*L is two
+    rounded float32 operations — in float64 the truncated value differs
+    at 100 lengths in 1..2048 (L = 9: float32 truncates to -6, float64
+    to -5; L = 24: -15 vs -14), so the table is built in float32;
+    local 20 + 8 ln L truncates the same
+    in float32 and float64 for every L <= 2048 (tested), so it is
+    computed in float64, independent of how a device rounds its log."""
+    L = np.maximum(np.arange(max_len + 1), 1)
+    if scoring.mode == "glocal":
+        v = np.float32(-0.6) - np.float32(0.6) * L.astype(np.float32)
+    else:
+        v = 20.0 + 8.0 * np.log(L.astype(np.float64))
+    return np.trunc(v).astype(np.int64)
+
+
+def _mapq_threshold(frac: float, diff: torch.Tensor) -> torch.Tensor:
+    """Smallest integer x with x >= f32(frac) * diff, computed EXACTLY in
+    int64: f32(frac) = m / 2^27 for every band fraction (>= 0.0625, so
+    its float32 value has granularity 2^-27 or coarser), and the result
+    is ceil(m * diff / 2^27). This reproduces bowtie2's
+    `intScore >= diff * (double)0.Xf` comparisons bit for bit (the JAX
+    package evaluates the same integer with an int32 split multiply)."""
+    m = int(round(float(np.float32(frac)) * (1 << 27)))
+    if m != float(np.float32(frac)) * (1 << 27):
+        raise ValueError(f"band fraction {frac} is not a multiple of 2^-27")
+    return (m * diff.to(torch.int64) + ((1 << 27) - 1)) >> 27
+
+
+def mapq_device(
+    best: torch.Tensor, second: torch.Tensor, smin_i: torch.Tensor,
+    sperf_i: torch.Tensor, has_second: torch.Tensor, local: bool = False,
+) -> torch.Tensor:
+    """Vectorized params.mapq_from_scores — bowtie2 MapqV2 (mapq.h), both
+    trees, in bowtie2's integer-score arithmetic. best/second are the
+    float32 DP scores, smin_i the integer scMin (score_min_table),
+    sperf_i the integer perfect score. diff/bestOver/bestdiff are
+    integers and band thresholds exact (_mapq_threshold). The
+    where-ladders are built from the same table constants the host twin
+    walks. Returns int32 [B]."""
+    smin_i = smin_i.to(torch.int64)
+    diff = (sperf_i.to(torch.int64) - smin_i).clamp(min=1)
+    best_i = torch.round(best).to(torch.int64)
+    bo = best_i - smin_i
+    valid2 = has_second & (second >= smin_i.to(torch.float32))
+    sec_i = torch.round(torch.where(valid2, second, 0.0)).to(torch.int64)
+
+    def full(v):
+        return torch.full_like(bo, v)
+
+    uniq_table = ap._MAPQ_UNIQ_LOCAL if local else ap._MAPQ_UNIQ_E2E
+    floor = (ap._MAPQ_UNIQ_LOCAL_FLOOR if local else ap._MAPQ_UNIQ_E2E_FLOOR)
+    single = full(floor)
+    for frac, q in reversed(uniq_table):
+        single = torch.where(bo >= _mapq_threshold(frac, diff), q, single)
+
+    bestdiff = (best_i.abs() - sec_i.abs()).abs()
+    perfect = bo == diff
+    ov84 = bo >= _mapq_threshold(0.84, diff)
+    ov68 = bo >= _mapq_threshold(0.68, diff)
+    hi = bo >= _mapq_threshold(0.67, diff)
+    rows = ap._MAPQ_TIE_LOCAL if local else ap._MAPQ_TIE_E2E
+    tail = ap._MAPQ_TIE_LOCAL_TAIL if local else ap._MAPQ_TIE_E2E_TAIL
+    tie = torch.where(bestdiff > 0,
+                      torch.where(hi, full(tail[0][0]), full(tail[0][1])),
+                      torch.where(hi, full(tail[1][0]), full(tail[1][1])))
+    for frac, q_perfect, q84, q68, q_else in reversed(rows):
+        band = torch.where(perfect, q_perfect,
+                           torch.where(ov84, q84,
+                                       torch.where(ov68, q68, full(q_else))))
+        tie = torch.where(bestdiff >= _mapq_threshold(frac, diff), band, tie)
+
+    q = torch.where(valid2, tie, single)
+    return torch.where(best_i < smin_i, 0, q).to(torch.int32)
+
+
+def canonical_best_col(out: Dict[str, torch.Tensor],
+                       scores: torch.Tensor) -> torch.Tensor:
+    """Deterministic multimapper arbitration: among the equal-best-score
+    candidates pick the smallest (seq_idx, tstart, strand) — a global
+    order, as the JAX package's (bowtie2's own arbitration is
+    pseudorandom). Candidates with identical (seq, tstart, strand) are
+    duplicates and were already dropped, so exactly one column survives
+    the three filters. Returns int64 [B] (first index on ties; 0 for a
+    row without any candidate)."""
+    BIG = 2**31 - 1
+    best = scores.amax(dim=1)
+    isb = out["valid"] & (scores == best[:, None]) & (scores > NEG_INF / 2)
+    for key in ("seq_idx", "tstart", "strand"):
+        v = torch.where(isb, out[key].to(torch.int32), BIG)
+        isb = isb & (v == v.amin(dim=1)[:, None])
+    # argmax over bool is not on every backend: over int32, first max
+    return torch.argmax(isb.to(torch.int32), dim=1)
+
+
+def best_hit_device(
+    out: Dict[str, torch.Tensor], qlens: torch.Tensor, scoring: ScoringParams,
+    smin_table: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Best hit per read over the pass-1 candidates, with MAPQ (the JAX
+    package's best_hit_device). smin_table is score_min_table(scoring,
+    max_len) on the device, indexed by qlen.
+
+    Returns (aligned [B] bool, best_col [B] int64, mapq [B] int32)."""
+    scores = torch.where(out["valid"], out["score"], NEG_INF)
+    best_col = canonical_best_col(out, scores)
+    best = _pick(scores, best_col)
+    masked = scores.clone()
+    masked[torch.arange(scores.shape[0], device=scores.device),
+           best_col] = NEG_INF
+    second = masked.amax(dim=1)
+    has_second = second > NEG_INF / 2
+    # bowtie2's scMin is the score-min function value CAST to the
+    # integer score type (truncation toward zero): local 20+8ln(L)=56.8
+    # admits an integer score of 56
+    smin_i = smin_table[qlens.to(torch.int64)]
+    sperf_i = scoring.match * qlens.to(torch.int64).clamp(min=1)
+    aligned = (best > NEG_INF / 2) & (best >= smin_i.to(torch.float32))
+    mapq = mapq_device(best, second, smin_i, sperf_i, has_second,
+                       local=scoring.mode == "local")
+    return aligned, best_col, mapq
+
+
+def keep_mask_chosen(
+    full: Dict[str, torch.Tensor], qlens: torch.Tensor,
+    mean_qual: torch.Tensor, mapq: torch.Tensor,
+    mapid: float, readq: float, min_mapq: int, aln_cov: float,
+) -> torch.Tensor:
+    """The reference's four keep_read filters (genes.py:153-169 ==
+    snps.py:141-162) over the pass-2 per-read ([B]) statistics of the
+    chosen candidate (align_chosen_full). Every comparison is in
+    float32, in the JAX package's operation order."""
+    f32 = torch.float32
+    alen = (full["qend"] - full["qstart"]).to(f32)
+    nm = (full["mismatches"] + full["gap_cols"]).to(f32)
+    pid = 100.0 * (alen - nm) / alen.clamp(min=1.0)
+    qlen = qlens.to(f32).clamp(min=1.0)
+    return ((pid >= mapid) & (mean_qual >= readq)
+            & (mapq >= min_mapq) & (alen / qlen >= aln_cov))
 
 
 # ---------------------------------------------------------------------------
@@ -194,3 +344,87 @@ def species_state_restore(h: Dict[str, np.ndarray], amb_cap: int,
     st.amb_n.fill_(int(h["amb_n"]))
     st.total_alns.fill_(int(h["total_alns"]))
     return st
+
+
+# ---------------------------------------------------------------------------
+# pangenome CNV (genes) profiling
+# ---------------------------------------------------------------------------
+
+GENES_FIELDS = ("aligned_reads", "mapped_reads", "bp")
+
+
+@dataclasses.dataclass
+class GenesState:
+    aligned_reads: torch.Tensor  # [G+1] int32 (slot G = dump row)
+    mapped_reads: torch.Tensor   # [G+1] int32
+    bp: torch.Tensor             # [G+1] int32 aligned bp (exact; depth =
+    #                              bp/gene_len in float64 on the host)
+
+
+def genes_init(num_genes: int, device) -> GenesState:
+    return GenesState(*(torch.zeros(num_genes + 1, dtype=torch.int32,
+                                    device=device) for _ in GENES_FIELDS))
+
+
+def genes_update(
+    state: GenesState,
+    index_arrays: Dict[str, torch.Tensor],
+    pack_arrays: Dict[str, torch.Tensor],
+    num_genes: int,
+    codes: torch.Tensor,
+    quals: torch.Tensor,         # [B, L] int8 (bowtie2 quality-scaled --mp)
+    qlens: torch.Tensor,
+    mean_qual: torch.Tensor,     # [B] float32
+    n_reads: int,                # real rows in this batch
+    scoring: ScoringParams,
+    seed_params: SeedParams,
+    max_len: int,
+    mapid: float,
+    readq: float,
+    min_mapq: int,
+    aln_cov: float,
+    smin_table: torch.Tensor,    # score_min_table(scoring, max_len)
+    paired: bool = False,
+) -> GenesState:
+    """One batch of CNV counting on the state's device, updating `state`
+    in place (reference semantics: genes.py:153-203).
+
+    Two-pass alignment: score-only DP over every candidate for selection
+    and MAPQ (pass 1, K3), then the full-statistics DP over just each
+    read's chosen candidate (pass 2, K2). The three per-gene sums are
+    integer scatter-adds — exact in any order; slot G takes every read
+    that is not counted."""
+    if paired:
+        raise NotImplementedError(
+            "paired-end genes (mate pairing) is not yet ported to "
+            "midas_tpu_torch")
+    out1, aux = align_candidates_score(index_arrays, pack_arrays, codes,
+                                       qlens, scoring, seed_params, max_len,
+                                       quals=quals)
+    B = out1["score"].shape[0]
+    G = num_genes
+    real = torch.arange(B, device=codes.device) < n_reads
+    aligned, best_col, mapq = best_hit_device(out1, qlens, scoring,
+                                              smin_table)
+    full = align_chosen_full(pack_arrays, aux, codes, qlens, best_col,
+                             scoring, seed_params)
+    aligned &= real
+    g = _pick(out1["seq_idx"], best_col)
+    ones = torch.ones(B, dtype=torch.int32, device=codes.device)
+    state.aligned_reads.index_add_(0, torch.where(aligned, g, G), ones)
+    keep = aligned & keep_mask_chosen(full, qlens, mean_qual, mapq,
+                                      mapid, readq, min_mapq, aln_cov)
+    gk = torch.where(keep, g, G)
+    state.mapped_reads.index_add_(0, gk, ones)
+    alen = full["qend"] - full["qstart"]
+    state.bp.index_add_(0, gk, torch.where(keep, alen, 0).to(torch.int32))
+    return state
+
+
+def genes_state_host(state: GenesState) -> Dict[str, np.ndarray]:
+    return {k: getattr(state, k).cpu().numpy() for k in GENES_FIELDS}
+
+
+def genes_state_restore(h: Dict[str, np.ndarray], device) -> GenesState:
+    return GenesState(*(torch.from_numpy(
+        np.asarray(h[k]).astype(np.int32)).to(device) for k in GENES_FIELDS))

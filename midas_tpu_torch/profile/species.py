@@ -371,6 +371,42 @@ def read_abundance(inpath: str) -> Dict[str, dict]:
     return abun
 
 
+def select_species(
+    db: Database,
+    outdir: str,
+    species_cov: Optional[float] = None,
+    species_topn: Optional[int] = None,
+    species_id: Optional[List[str]] = None,
+) -> List[str]:
+    """Select species for genes/snps profiling — intersection of the
+    requested criteria, minus exclude.txt (species.py:191-227)."""
+    species_sets = []
+    if species_cov is not None or species_topn is not None:
+        abundance = read_abundance(os.path.join(outdir, "species/species_profile.txt"))
+        if species_cov is not None:
+            species_sets.append(
+                {s for s, v in abundance.items() if v["coverage"] >= species_cov})
+        if species_topn is not None:
+            ranked = sorted(abundance.items(),
+                            key=lambda kv: kv[1]["relative_abundance"], reverse=True)
+            species_sets.append({s for s, _v in ranked[:species_topn]})
+    if species_id:
+        species_sets.append(set(species_id))
+    if not species_sets:
+        return []
+    # sorted so the pack layout — and with it argmax tie-breaking among
+    # equally-scoring hits — is independent of PYTHONHASHSEED; the
+    # reference's unsorted list(set) makes its genes output run-order
+    # dependent in the same way its RNG is unseeded (species.py:113-117)
+    my_species = sorted(set.intersection(*species_sets))
+    for bad in db.excluded_species():
+        if bad in my_species:
+            my_species.remove(bad)
+    if not my_species:
+        sys.exit("\nError: no species satisfied your selection criteria.\n")
+    return my_species
+
+
 def run_species(args: Dict) -> Dict:
     """The species pipeline end to end, with the reference's output layout
     (species.py:229-269): <outdir>/species/{species_profile.txt,
