@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
 1. device  — the card; exits non-zero without CUDA. Also prints the
              `nvidia-smi --query-gpu=name,power.limit` line as it is.
 2. build   — compiles the kernels from this checkout's sources (nvcc,
-             sm_90a) and the native FASTQ reader, in parallel.
+             sm_90a) and the native FASTQ reader, in parallel, and
+             reports each kernel function's registers and spills
+             (ptxas).
 3. data    — simulates a marker database the size of the production
              phyeco.fa (1,100 species + 275 related, 15 x 900 bp markers
              each, ~18.6 MB) and 65,536 x 100 bp reads from the first 20
@@ -16,9 +18,11 @@ Phases, each printing one JSON line:
 4. kernels — every variant of the banded-DP kernel against its plain
              PyTorch version on the card, equal field by field: K1 at the
              main-path shape (one batch: 8,192 reads x 8 candidates, the
-             phase-3 database's windows), K2 / K3 under LOCAL and GLOBAL
-             scoring at P = 4,096 with indels. Kernel ms (CUDA events,
-             after a warm-up), plain ms and the bound.
+             phase-3 database's windows) and on as many pairs of
+             repeat-rich windows full of ties (tests/torch_cases.py), with
+             its layout (lanes a pair, offsets a lane); K2 / K3 under
+             LOCAL and GLOBAL scoring at P = 4,096 with indels. Kernel ms
+             (CUDA events, after a warm-up), plain ms and the bound.
 5. main    — SpeciesProfiler.run over the 65,536 reads at batch 8,192:
              end-to-end reads/s, the kernel's launch count (must equal
              the number of batches), device-step ms per batch with a
@@ -49,7 +53,10 @@ Phases, each printing one JSON line:
              decompressed .genes.gz and the saved GenesState must be
              identical.
 
-Then the kernels line, and as the last line
+Then the kernels line (two kernel functions: banded_sw, K1's packed
+kernel on the main path, timed at the species batch as in earlier
+runs; banded_sw_template, the template kernel of K2 and K3), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -176,9 +183,9 @@ def phase_build():
         have_native = nat.result() is not None
     secs = time.time() - t0
     with open(os.path.join(ROOT, "build", "banded_sw.ptxas.txt")) as f:
-        regs = sorted({int(w.split()[0]) for w in f.read().split("Used ")[1:]})
+        report = cuda_sw.ptxas_report(f.read())
     emit("build", seconds=round(secs, 2), kernels=["banded_sw"],
-         registers_per_thread=regs, native_fastq_reader=have_native)
+         kernel_functions=report, native_fastq_reader=have_native)
 
 
 def phase_data():
@@ -265,22 +272,44 @@ def phase_kernels(prof, fq):
     from midas_tpu_torch.align.params import (GLOBAL_SCORING, LOCAL_SCORING,
                                               MARKER_SCORING)
 
+    from midas_tpu_torch.align import cuda_sw
+
+    tie_case = _load_tie_case()
+
     _, main_pairs = _main_batch_pairs(prof, fq)
     small = [torch.from_numpy(x).cuda() for x in _small_case(11, SMALL_P)]
-    cases = [("K1", "marker", MARKER_SCORING, main_pairs, None, False)]
+    ties = [torch.from_numpy(x).cuda()
+            for x in tie_case(12, P=main_pairs[0].shape[0], L=128)]
+    cases = [("K1", "marker", MARKER_SCORING, main_pairs, None, False,
+              "main path batch"),
+             ("K1", "marker", MARKER_SCORING, ties, None, False,
+              "repeat windows, ties")]
     for name, sc in (("local", LOCAL_SCORING), ("global", GLOBAL_SCORING)):
-        cases.append(("K2", name, sc, small[:3], small[3], False))
-        cases.append(("K3", name, sc, small[:3], None, True))
-        cases.append(("K3", name, sc, small[:3], small[3], True))
+        cases.append(("K2", name, sc, small[:3], small[3], False, "synthetic"))
+        cases.append(("K3", name, sc, small[:3], None, True, "synthetic"))
+        cases.append(("K3", name, sc, small[:3], small[3], True, "synthetic"))
+    layout = cuda_sw.k1_layout()
     variants = []
-    for kname, sname, sc, (q, ql, win), qpen, so in cases:
+    for kname, sname, sc, (q, ql, win), qpen, so, shape in cases:
+        extra = dict(k1_layout=layout) if kname == "K1" else {}
         v = _check_variant(kname, sname, sc, q, ql, win, qpen, so,
-                           shape="main path batch" if kname == "K1"
-                           else "synthetic")
+                           shape=shape, **extra)
         v.pop("_out")
         emit("kernels", **v)
         variants.append(v)
     return variants
+
+
+def _load_tie_case():
+    """tests/torch_cases.py's tie-heavy generator (numpy only), loaded by
+    file path so that no import of this script looks in tests/."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cases", os.path.join(ROOT, "tests", "torch_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.tie_case
 
 
 def _check_variant(kname, sname, sc, q, ql, win, qpen, so, **extra):
@@ -769,20 +798,30 @@ def main():
                 "genes_cli_global" if v["shape"].startswith("genes") else None)
         v["path"] = path
         v["launches"] = by_path[path].get(v["key"], 0) if path else 0
-    k1 = variants[0]
-    print(json.dumps({"kernels": [dict(
-        name="banded_sw", route="cuda",
-        source="midas_tpu_torch/csrc/banded_sw.cu",
-        replaces="midas_tpu/align/pallas_sw.py:328",
-        launches=sum(species_launches.values())
-        + sum(genes_launches.values()),
-        launches_by_path=by_path,
-        max_abs_err=max(v["max_abs_err"] for v in variants),
-        ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-        bound_by=k1["bound_by"], library_ms=None,
-        equal=all(v["equal"] for v in variants), tolerance=0.0,
-        card=smi_line,
-        variants=variants)]}), flush=True)
+    # two kernel functions: banded_sw, K1 on the main path (its packed
+    # kernel, timed at the species batch), and banded_sw_template, the
+    # template kernel of K2 / K3 (timed at genes pass 1, K3 with qpen,
+    # its most launched variant)
+    k1s = [v for v in variants if v["variant"] == "K1"]
+    rest = [v for v in variants if v["variant"] != "K1"]
+    k3 = next(v for v in rest if v["shape"] == "genes pass 1"
+              and v["path"] == "genes")
+
+    def entry(name, timed, group, launches):
+        return dict(
+            name=name, route="cuda", source="midas_tpu_torch/csrc/banded_sw.cu",
+            replaces="midas_tpu/align/pallas_sw.py:328", launches=launches,
+            launches_by_path=by_path,
+            max_abs_err=max(v["max_abs_err"] for v in group),
+            ms=timed["ms"], plain_ms=timed["plain_ms"],
+            bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+            library_ms=None, equal=all(v["equal"] for v in group),
+            tolerance=0.0, card=smi_line, variants=group)
+
+    print(json.dumps({"kernels": [
+        entry("banded_sw", k1s[0], k1s, species_launches.get("K1", 0)),
+        entry("banded_sw_template", k3, rest, sum(genes_launches.values())),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,9 +16,10 @@ from __future__ import annotations
 import collections
 import ctypes
 import os
+import re
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -28,6 +29,7 @@ from midas_tpu_torch.align.params import ScoringParams
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "banded_sw.cu")
 BAND = 16   # the kernel's compiled band width
+K1_OFFSETS_PER_LANE = 4   # band offsets a lane in K1's packed kernel
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -76,8 +78,42 @@ def load_library() -> ctypes.CDLL:
             lib.banded_sw_launch.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            lib.banded_sw_k1_packed_max_l.restype = ctypes.c_int
+            lib.banded_sw_k1_packed_max_l.argtypes = []
             _LIB = lib
         return _LIB
+
+
+def k1_layout() -> Dict[str, int]:
+    """The layout of K1's packed kernel: band offsets per lane, lanes per
+    pair, and the longest row it takes (longer rows run the template
+    kernel, still counted as K1)."""
+    return dict(offsets_per_lane=K1_OFFSETS_PER_LANE,
+                lanes_per_pair=BAND // K1_OFFSETS_PER_LANE,
+                packed_max_l=load_library().banded_sw_k1_packed_max_l())
+
+
+def ptxas_report(text: str) -> List[Dict]:
+    """Registers and spills per kernel function from nvcc's -Xptxas -v
+    output (build/banded_sw.ptxas.txt): name with its template arguments
+    (LOCAL, then N_STATS and QUAL_PEN or offsets per lane), registers a
+    thread, spill store and load bytes, stack frame bytes."""
+    out = []
+    for block in text.split("Compiling entry function ")[1:]:
+        mangled = block.split("'", 2)[1]
+        m = re.search(r"(banded_sw_kernel|k1_packed_kernel)I(.*?)EEv",
+                      mangled)
+        args = re.findall(r"L[bi](\d+)", m.group(2)) if m else []
+        name = f"{m.group(1)}<{','.join(args)}>" if m else mangled
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        out.append(dict(
+            function=name, registers=int(regs.group(1)) if regs else None,
+            stack_frame=int(frame.group(1)) if frame else None,
+            spill_stores=int(frame.group(2)) if frame else None,
+            spill_loads=int(frame.group(3)) if frame else None))
+    return out
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

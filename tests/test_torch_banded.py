@@ -19,17 +19,24 @@ from midas_tpu_torch.align import params as tparams
 from midas_tpu_torch.align.banded import banded_align_plain
 from midas_tpu_torch.align.pipeline import dispatch_banded_align
 
-from torch_cases import dp_case, qpen_case
+from torch_cases import dp_case, qpen_case, tie_case
 
 # the suite runs files in parallel worker processes: one intra-op
 # thread per worker keeps torch from oversubscribing the cores
 torch.set_num_threads(1)
 
 SCORINGS = ["GLOBAL_SCORING", "MARKER_SCORING", "LOCAL_SCORING"]
+# the cases of test_pallas_sw.py, and "<scoring>-ties": tie_case's
+# homopolymer and repeat windows, where many band offsets score alike
+CASES = SCORINGS + [f"{n}-ties" for n in SCORINGS]
 
 
 def _inputs(name, with_qpen):
-    q, qlens, ref = dp_case(0, indel=True)
+    name, _, kind = name.partition("-")
+    if kind == "ties":
+        q, qlens, ref = tie_case(4, P=128, L=64)
+    else:
+        q, qlens, ref = dp_case(0, indel=True)
     qlens[[5, 77]] = 0                     # pairs without a read (padding)
     qpen = None
     if with_qpen:
@@ -45,9 +52,10 @@ def test_scoring_params_copied(name):
 
 @pytest.mark.parametrize("score_only", [False, True])
 @pytest.mark.parametrize("with_qpen", [False, True])
-@pytest.mark.parametrize("name", SCORINGS)
+@pytest.mark.parametrize("name", CASES)
 def test_plain_equals_jax(name, with_qpen, score_only):
     q, qlens, ref, qpen = _inputs(name, with_qpen)
+    name = name.partition("-")[0]
     jp, tp = getattr(jparams, name), getattr(tparams, name)
     jq = None if qpen is None else jnp.asarray(qpen)
     jnp_out = banded_align(jnp.asarray(q), jnp.asarray(qlens),
@@ -100,3 +108,21 @@ def test_no_fallback_from_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             # a CUDA tensor cannot even be made without a card
             torch.from_numpy(q).to("cuda")
+
+
+def test_ptxas_report():
+    """Registers and spills per kernel function, from nvcc -Xptxas -v."""
+    text = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116k1_"
+        "packed_kernelILb1ELi2EEEvPKaPKiS3_PfS5_iiffff' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 56 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116banded_"
+        "sw_kernelILb0ELi6ELb1EEEvPKaPKiS3_S3_PfS5_iifffff' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 63 registers, used 0 barriers\n")
+    assert cuda_sw.ptxas_report(text) == [
+        dict(function="k1_packed_kernel<1,2>", registers=56, stack_frame=0,
+             spill_stores=0, spill_loads=0),
+        dict(function="banded_sw_kernel<0,6,1>", registers=63, stack_frame=8,
+             spill_stores=4, spill_loads=8)]

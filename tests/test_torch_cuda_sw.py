@@ -1,21 +1,27 @@
-"""The hand-written banded-DP kernel (csrc/banded_sw.cu) against its plain
-PyTorch version on the card: every variant (full statistics or score
-only, flat or quality-scaled mismatch) under all three scorings, equal
-field by field. Needs an NVIDIA card; skips without one. Run on the card
-with: python -m pytest --noconftest tests/test_torch_cuda_sw.py -q
+"""The hand-written banded-DP kernels (csrc/banded_sw.cu) against their
+plain PyTorch version on the card: every variant (full statistics or
+score only, flat or quality-scaled mismatch) under all three scorings,
+equal field by field, and K1's packed kernel on repeat-rich windows full
+of ties, a ragged pair count, a 250 bp bucket, rows that are not 4-byte
+aligned and, above its row limit, the template kernel. Needs an NVIDIA
+card; skips without one. Run on the card with:
+python -m pytest --noconftest tests/test_torch_cuda_sw.py -q
 (the repo's conftest imports JAX, which the card's machine lacks)."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from midas_tpu_torch._build import build_dir
 from midas_tpu_torch.align import cuda_sw
 from midas_tpu_torch.align.banded import banded_align_plain
 from midas_tpu_torch.align.params import (GLOBAL_SCORING, LOCAL_SCORING,
                                           MARKER_SCORING)
 from midas_tpu_torch.align.pipeline import dispatch_banded_align
 
-from torch_cases import dp_case, qpen_case
+from torch_cases import dp_case, qpen_case, tie_case
 
 SCORINGS = {"global": GLOBAL_SCORING, "marker": MARKER_SCORING,
             "local": LOCAL_SCORING}
@@ -115,3 +121,83 @@ def test_launches_counted_per_variant(card):
     cuda_sw.banded_align_cuda(t[0][:0], t[1][:0], t[2][:0], LOCAL_SCORING)
     torch.cuda.synchronize()
     assert dict(launches) == {"K1": 1, "K2": 2, "K3_qpen": 3, "K3": 1}
+
+
+def _assert_k1_equals_plain(card, scoring, q, qlens, ref):
+    t = [torch.from_numpy(x).to(card) for x in (q, qlens, ref)]
+    k0 = cuda_sw.LAUNCHES["K1"]
+    got = dispatch_banded_align(*t, scoring, 16)
+    assert cuda_sw.LAUNCHES["K1"] == k0 + 1
+    want = banded_align_plain(*t, scoring)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].cpu().numpy(),
+                                      want[k].cpu().numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCORINGS))
+def test_k1_ties_equal_plain(card, name):
+    """Homopolymer and repeat windows: ties in the row argmax (within a
+    lane and across lanes) and in the deletion scan's keys."""
+    _assert_k1_equals_plain(card, SCORINGS[name],
+                            *tie_case(9, P=4096, L=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["global", "marker"])
+def test_k1_ragged_pair_count(card, name):
+    """P = 4,099 is no multiple of the pairs a block or a warp holds."""
+    q, qlens, ref, _ = _inputs(13, P=4099, L=128, scoring=SCORINGS[name],
+                               with_qpen=False)
+    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["global", "marker"])
+def test_k1_250bp_bucket(card, name):
+    q, qlens, ref, _ = _inputs(17, P=1024, L=256, scoring=SCORINGS[name],
+                               with_qpen=False)
+    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["global", "marker"])
+def test_k1_unaligned_rows(card, name):
+    """L = 150: query rows are not 4-byte aligned, so the packed kernel
+    reads them a byte at a time."""
+    q, qlens, ref, _ = _inputs(23, P=1000, L=150, scoring=SCORINGS[name],
+                               with_qpen=False)
+    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["global", "marker"])
+def test_k1_above_packing_limit(card, name):
+    """Rows longer than the packed kernel takes go to the template
+    kernel, still counted as K1. Reads stay short so the plain version's
+    row loop is short; the bucket L is what routes the launch."""
+    L = cuda_sw.k1_layout()["packed_max_l"] + 16
+    q0, qlens, ref0, _ = _inputs(19, P=48, L=256, scoring=SCORINGS[name],
+                                 with_qpen=False)
+    rng = np.random.default_rng(20)
+    q = np.full((48, L), 4, dtype=np.int8)
+    q[:, :256] = q0
+    ref = rng.integers(0, 4, size=(48, L + 15)).astype(np.int8)
+    ref[:, :256 + 15] = ref0
+    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+
+
+@pytest.mark.cuda
+def test_k1_layout(card):
+    """The build holds the packed kernel in both modes at the layout the
+    wrapper reports, which covers the band; the packing limit of
+    csrc/banded_sw.cu keeps every field below 2^16."""
+    lay = cuda_sw.k1_layout()
+    assert lay["offsets_per_lane"] * lay["lanes_per_pair"] == cuda_sw.BAND
+    assert 2 * lay["packed_max_l"] + 31 < 2 ** 16
+    with open(os.path.join(build_dir(), "banded_sw.ptxas.txt")) as f:
+        names = {r["function"] for r in cuda_sw.ptxas_report(f.read())}
+    opl = lay["offsets_per_lane"]
+    assert {f"k1_packed_kernel<1,{opl}>", f"k1_packed_kernel<0,{opl}>"} <= names

@@ -1,4 +1,4 @@
-"""Guard: the port (every midas_tpu_torch module, and chip_smoke.py)
+"""Guard: the port (every midas_tpu_torch module and chip_smoke.py)
 imports neither JAX nor anything of the JAX package, and importing it
 touches no card."""
 

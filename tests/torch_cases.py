@@ -28,6 +28,49 @@ def dp_case(seed, P=128, L=64, D=16, n_subs=3, indel=False):
     return q, qlens, ref
 
 
+def tie_case(seed, P=128, L=64, D=16):
+    """(query, qlens, ref) like dp_case, but with windows where many band
+    offsets score alike: homopolymers, di- and trinucleotide repeats, and
+    random windows around a long homopolymer run. Reads are cut at a
+    random offset, with substitutions, 1-3 bp insertions or deletions and
+    read Ns, so row maxima, deletion-scan keys and their ties land on
+    every offset. The first pairs hold an empty and a 1 bp read."""
+    rng = np.random.default_rng(seed)
+    W = L + D - 1
+    ref = np.empty((P, W), dtype=np.int8)
+    q = np.full((P, L), 4, dtype=np.int8)
+    qlens = np.zeros(P, dtype=np.int32)
+    for i in range(P):
+        kind = i % 4
+        if kind == 3:
+            ref[i] = rng.integers(0, 4, W)
+            a = int(rng.integers(0, W // 2))
+            ref[i, a:a + W // 2] = rng.integers(0, 4)
+        else:
+            unit = rng.integers(0, 4, size=kind + 1)
+            ref[i] = np.resize(unit, W)
+            noise = rng.random(W) < 0.03
+            ref[i, noise] = rng.integers(0, 4, int(noise.sum()))
+        n = int(rng.integers(L // 2, L + 1))
+        at = int(rng.integers(0, D))
+        frag = ref[i, at:at + n].copy()
+        k = int(rng.integers(0, 4))
+        if k:
+            pos = rng.choice(len(frag), k, replace=False)
+            frag[pos] = (frag[pos] + rng.integers(1, 4, k)) % 4
+        g = int(rng.integers(1, 4))
+        c = int(rng.integers(4, len(frag) - 4))
+        if i % 3 == 1:
+            frag = np.delete(frag, range(c, c + g))
+        elif i % 3 == 2:
+            frag = np.insert(frag, c, rng.integers(0, 4, g))[:L]
+        frag[rng.random(len(frag)) < 0.01] = 4
+        q[i, :len(frag)] = frag
+        qlens[i] = len(frag)
+    qlens[:2] = (0, 1)
+    return q, qlens, ref
+
+
 def qpen_case(seed, q, scoring, n_frac=0.02):
     """Quality penalties from random Phred scores (bowtie2 --mp table,
     as pipeline.quality_penalties) for reads q, and a copy of q with a
