@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
 2. build   — compiles the kernels from this checkout's sources (nvcc,
              sm_90a) and the native FASTQ reader, in parallel, and
              reports each kernel function's registers and spills
-             (ptxas).
+             (ptxas), with the packed kernel's layout per variant.
 3. data    — simulates a marker database the size of the production
              phyeco.fa (1,100 species + 275 related, 15 x 900 bp markers
              each, ~18.6 MB) and 65,536 x 100 bp reads from the first 20
@@ -19,10 +19,14 @@ Phases, each printing one JSON line:
              PyTorch version on the card, equal field by field: K1 at the
              main-path shape (one batch: 8,192 reads x 8 candidates, the
              phase-3 database's windows) and on as many pairs of
-             repeat-rich windows full of ties (tests/torch_cases.py), with
-             its layout (lanes a pair, offsets a lane); K2 / K3 under
-             LOCAL and GLOBAL scoring at P = 4,096 with indels. Kernel ms
-             (CUDA events, after a warm-up), plain ms and the bound.
+             repeat-rich windows full of ties (tests/torch_cases.py); K3
+             with qpen (P = 32,768) and K2 (P = 8,192) on tie-heavy
+             windows with quality penalties and read Ns, LOCAL scoring;
+             K2 / K3 under LOCAL and GLOBAL scoring at P = 4,096 with
+             indels; and the template kernel, K1 and K2 at P = 48,
+             L = 32,768 (above the packed kernel's row limit) with short
+             reads. Kernel ms (CUDA events, after a warm-up), plain ms and
+             the bound.
 5. main    — SpeciesProfiler.run over the 65,536 reads at batch 8,192:
              end-to-end reads/s, the kernel's launch count (must equal
              the number of batches), device-step ms per batch with a
@@ -53,10 +57,13 @@ Phases, each printing one JSON line:
              decompressed .genes.gz and the saved GenesState must be
              identical.
 
-Then the kernels line (two kernel functions: banded_sw, K1's packed
-kernel on the main path, timed at the species batch as in earlier
-runs; banded_sw_template, the template kernel of K2 and K3), and as
-the last line
+Then the kernels line: banded_sw (K1 on the packed kernel, timed at
+the species batch as in earlier runs, species launches),
+banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
+genes launches), banded_sw_k2 (K2 on the packed kernel, timed at genes
+pass 2, genes launches) and banded_sw_template (the template kernel,
+timed on the above-the-limit check, launched on no path), and as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -123,14 +130,18 @@ def ops_per_cell(n_stats, local, qual_pen, band=16):
 
 def dp_bound(qlens, P, L, n_stats, local, qual_pen, band=16):
     """Least time for one DP call on these inputs: the larger of its
-    operations over the float32 peak (cells this data needs: each pair
-    stops at its own read length) and its bytes over the HBM rate (each
-    input read once, each output written once)."""
-    cells = int(np.minimum(qlens, L).sum()) * band
+    operations over the float32 peak and its bytes over the HBM rate,
+    both counted for what this data needs. Each pair stops at its own
+    read length: its cells are its rows times the band, and it reads
+    each of its query (and qpen) rows once and its reference window up
+    to its last row plus the band, besides its length and outputs."""
+    rows = np.minimum(qlens, L).astype(np.int64)
+    cells = int(rows.sum()) * band
     ops = cells * ops_per_cell(n_stats, local, qual_pen, band)
     n_out = 9 if n_stats == 6 else 4
-    nbytes = (P * L * (2 if qual_pen else 1) + P * (L + band - 1) + 4 * P
-              + 4 * P * n_out)
+    nbytes = int(rows.sum() * (2 if qual_pen else 1)
+                 + np.where(rows > 0, rows + band - 1, 0).sum()
+                 + 4 * P + 4 * P * n_out)
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             cells, ops, nbytes)
@@ -185,7 +196,8 @@ def phase_build():
     with open(os.path.join(ROOT, "build", "banded_sw.ptxas.txt")) as f:
         report = cuda_sw.ptxas_report(f.read())
     emit("build", seconds=round(secs, 2), kernels=["banded_sw"],
-         kernel_functions=report, native_fastq_reader=have_native)
+         packed_layout=cuda_sw.packed_layout(), kernel_functions=report,
+         native_fastq_reader=have_native)
 
 
 def phase_data():
@@ -274,50 +286,70 @@ def phase_kernels(prof, fq):
 
     from midas_tpu_torch.align import cuda_sw
 
-    tie_case = _load_tie_case()
+    cases_mod = _load_torch_cases()
+
+    def card(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
 
     _, main_pairs = _main_batch_pairs(prof, fq)
-    small = [torch.from_numpy(x).cuda() for x in _small_case(11, SMALL_P)]
-    ties = [torch.from_numpy(x).cuda()
-            for x in tie_case(12, P=main_pairs[0].shape[0], L=128)]
+    small = card(*_small_case(11, SMALL_P))
+    ties = card(*cases_mod.tie_case(12, P=main_pairs[0].shape[0], L=128))
     cases = [("K1", "marker", MARKER_SCORING, main_pairs, None, False,
               "main path batch"),
              ("K1", "marker", MARKER_SCORING, ties, None, False,
               "repeat windows, ties")]
+    # K3 with qpen and K2 at their genes shapes on repeat windows, with
+    # quality penalties and read Ns
+    for kname, P, so in (("K3", 32768, True), ("K2", BATCH, False)):
+        q, ql, ref = cases_mod.tie_case(13 + P, P=P, L=128)
+        qpen, q = cases_mod.qpen_case(14 + P, q, LOCAL_SCORING)
+        q, ql, ref, qpen = card(q, ql, ref, qpen)
+        cases.append((kname, "local", LOCAL_SCORING, (q, ql, ref), qpen, so,
+                      "repeat windows, ties"))
     for name, sc in (("local", LOCAL_SCORING), ("global", GLOBAL_SCORING)):
         cases.append(("K2", name, sc, small[:3], small[3], False, "synthetic"))
         cases.append(("K3", name, sc, small[:3], None, True, "synthetic"))
         cases.append(("K3", name, sc, small[:3], small[3], True, "synthetic"))
-    layout = cuda_sw.k1_layout()
+    # the template kernel: full-statistics rows above the packing limit
+    q, ql, ref, qpen = card(*cases_mod.long_bucket_case(15, 32768,
+                                                        LOCAL_SCORING))
+    cases.append(("K1", "marker", MARKER_SCORING, (q, ql, ref), None, False,
+                  "above the packing limit"))
+    cases.append(("K2", "local", LOCAL_SCORING, (q, ql, ref), qpen, False,
+                  "above the packing limit"))
+    layout = cuda_sw.packed_layout()
     variants = []
     for kname, sname, sc, (q, ql, win), qpen, so, shape in cases:
-        extra = dict(k1_layout=layout) if kname == "K1" else {}
         v = _check_variant(kname, sname, sc, q, ql, win, qpen, so,
-                           shape=shape, **extra)
+                           shape=shape, layout=layout)
         v.pop("_out")
         emit("kernels", **v)
         variants.append(v)
     return variants
 
 
-def _load_tie_case():
-    """tests/torch_cases.py's tie-heavy generator (numpy only), loaded by
-    file path so that no import of this script looks in tests/."""
+def _load_torch_cases():
+    """tests/torch_cases.py, the tests' numpy-only input generators,
+    loaded by file path so that no import of this script looks in
+    tests/."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "torch_cases", os.path.join(ROOT, "tests", "torch_cases.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.tie_case
+    return mod
 
 
-def _check_variant(kname, sname, sc, q, ql, win, qpen, so, **extra):
+def _check_variant(kname, sname, sc, q, ql, win, qpen, so, layout,
+                   **extra):
     """One kernel variant on these inputs: equal to the plain version
     field by field (fails otherwise), its ms by CUDA events (mean of 20
-    after a warm-up), the plain version's ms (one call) and the bound.
-    Returns the variant's record (and the kernel's outputs under
-    "_out", for the caller's own checks)."""
+    after a warm-up), the plain version's ms (one call) and the bound,
+    with the kernel function that ran (packed, at its layout, or the
+    template kernel for full-statistics rows above the limit). Returns
+    the variant's record (and the kernel's outputs under "_out", for the
+    caller's own checks)."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
@@ -347,8 +379,11 @@ def _check_variant(kname, sname, sc, q, ql, win, qpen, so, **extra):
     n_stats, local = 1 if so else 6, sc.mode == "local"
     bound, by, cells, ops, nbytes = dp_bound(
         ql.cpu().numpy(), P, L, n_stats, local, qpen is not None)
-    return dict(variant=kname, key=cuda_sw.variant_key(n_stats,
-                                                       qpen is not None),
+    key = cuda_sw.variant_key(n_stats, qpen is not None)
+    template = n_stats == 6 and L > layout["packed_max_l"]
+    return dict(variant=kname, key=key,
+                function="template" if template else "packed",
+                layout=None if template else layout[key],
                 scoring=sname, qual_pen=qpen is not None, score_only=so,
                 P=P, L=L, equal=True, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, cells=cells,
@@ -578,6 +613,7 @@ def phase_genes_kernels(prof, fq):
 
     b, arrays = _first_batch(prof.aligner, fq,
                              ("codes", "quals", "lengths", "mean_qual"))
+    layout = cuda_sw.packed_layout()
     variants = []
     for sname, sc in (("local", LOCAL_SCORING), ("global", GLOBAL_SCORING)):
         calls = _captured_dp_calls(lambda: _genes_step(prof, sc, b, arrays))
@@ -589,9 +625,9 @@ def phase_genes_kernels(prof, fq):
                 and not k2["score_only"] and k2["qpen"] is not None):
             fail(f"genes_update ({sname}) did not run K3 with qpen, then K2")
         v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
-                            shape="genes pass 1")
+                            layout, shape="genes pass 1")
         v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
-                            shape="genes pass 2")
+                            layout, shape="genes pass 2")
         # K3 agrees with K2 on the fields both compute, on pass 1's pairs
         full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
         k3_out = v3.pop("_out")
@@ -771,6 +807,50 @@ def phase_genes_cpu(comm, fq):
     return result
 
 
+def kernels_line(variants, by_path, smi_line):
+    """The kernels line: one entry per kernel the paths run, timed at its
+    path's shape, with its path's launches — banded_sw (K1, packed, at
+    the species batch), banded_sw_k3_qpen (K3, packed, at genes pass 1),
+    banded_sw_k2 (K2, packed, at genes pass 2) — and banded_sw_template
+    (the template kernel, on the above-the-limit check, on no path).
+    Marks each variant record with its path and that path's launches."""
+    for v in variants:
+        path = ("species" if v["shape"] == "main path batch" else
+                "genes" if v["shape"].startswith("genes") and
+                v["scoring"] == "local" else
+                "genes_cli_global" if v["shape"].startswith("genes") else None)
+        v["path"] = path
+        v["launches"] = by_path[path].get(v["key"], 0) if path else 0
+
+    def group(function, variant=None):
+        return [v for v in variants if v["function"] == function
+                and variant in (None, v["variant"])]
+
+    def entry(name, group, shape, launches):
+        timed = next(v for v in group if v["shape"] == shape
+                     and v["scoring"] in ("marker", "local"))
+        return dict(
+            name=name, route="cuda", source="midas_tpu_torch/csrc/banded_sw.cu",
+            replaces="midas_tpu/align/pallas_sw.py:328", launches=launches,
+            launches_by_path=by_path,
+            max_abs_err=max(v["max_abs_err"] for v in group),
+            ms=timed["ms"], plain_ms=timed["plain_ms"],
+            bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+            library_ms=None, equal=all(v["equal"] for v in group),
+            tolerance=0.0, card=smi_line, variants=group)
+
+    return {"kernels": [
+        entry("banded_sw", group("packed", "K1"), "main path batch",
+              by_path["species"].get("K1", 0)),
+        entry("banded_sw_k3_qpen", group("packed", "K3"), "genes pass 1",
+              by_path["genes"].get("K3_qpen", 0)),
+        entry("banded_sw_k2", group("packed", "K2"), "genes pass 2",
+              by_path["genes"].get("K2", 0)),
+        entry("banded_sw_template", group("template"),
+              "above the packing limit", 0),
+    ]}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "midas_tpu_torch")):
         fail("chip_smoke.py must sit at the root of a checkout of the repo "
@@ -791,37 +871,7 @@ def main():
     genes_cli = phase_genes_cpu(comm, fq)
     by_path = {"species": species_launches, "genes": genes_launches,
                "genes_cli_global": genes_cli["global"]["card_launches"]}
-    for v in variants:
-        path = ("species" if v["shape"] == "main path batch" else
-                "genes" if v["shape"].startswith("genes") and
-                v["scoring"] == "local" else
-                "genes_cli_global" if v["shape"].startswith("genes") else None)
-        v["path"] = path
-        v["launches"] = by_path[path].get(v["key"], 0) if path else 0
-    # two kernel functions: banded_sw, K1 on the main path (its packed
-    # kernel, timed at the species batch), and banded_sw_template, the
-    # template kernel of K2 / K3 (timed at genes pass 1, K3 with qpen,
-    # its most launched variant)
-    k1s = [v for v in variants if v["variant"] == "K1"]
-    rest = [v for v in variants if v["variant"] != "K1"]
-    k3 = next(v for v in rest if v["shape"] == "genes pass 1"
-              and v["path"] == "genes")
-
-    def entry(name, timed, group, launches):
-        return dict(
-            name=name, route="cuda", source="midas_tpu_torch/csrc/banded_sw.cu",
-            replaces="midas_tpu/align/pallas_sw.py:328", launches=launches,
-            launches_by_path=by_path,
-            max_abs_err=max(v["max_abs_err"] for v in group),
-            ms=timed["ms"], plain_ms=timed["plain_ms"],
-            bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
-            library_ms=None, equal=all(v["equal"] for v in group),
-            tolerance=0.0, card=smi_line, variants=group)
-
-    print(json.dumps({"kernels": [
-        entry("banded_sw", k1s[0], k1s, species_launches.get("K1", 0)),
-        entry("banded_sw_template", k3, rest, sum(genes_launches.values())),
-    ]}), flush=True)
+    print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

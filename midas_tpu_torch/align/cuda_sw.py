@@ -29,7 +29,6 @@ from midas_tpu_torch.align.params import ScoringParams
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "banded_sw.cu")
 BAND = 16   # the kernel's compiled band width
-K1_OFFSETS_PER_LANE = 4   # band offsets a lane in K1's packed kernel
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -78,33 +77,46 @@ def load_library() -> ctypes.CDLL:
             lib.banded_sw_launch.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-            lib.banded_sw_k1_packed_max_l.restype = ctypes.c_int
-            lib.banded_sw_k1_packed_max_l.argtypes = []
+            lib.banded_sw_offsets_per_lane.restype = ctypes.c_int
+            lib.banded_sw_offsets_per_lane.argtypes = [ctypes.c_int] * 2
+            lib.banded_sw_packed_max_l.restype = ctypes.c_int
+            lib.banded_sw_packed_max_l.argtypes = []
             _LIB = lib
         return _LIB
 
 
-def k1_layout() -> Dict[str, int]:
-    """The layout of K1's packed kernel: band offsets per lane, lanes per
-    pair, and the longest row it takes (longer rows run the template
-    kernel, still counted as K1)."""
-    return dict(offsets_per_lane=K1_OFFSETS_PER_LANE,
-                lanes_per_pair=BAND // K1_OFFSETS_PER_LANE,
-                packed_max_l=load_library().banded_sw_k1_packed_max_l())
+def packed_layout() -> Dict:
+    """The layout of the packed kernel, constants of csrc/banded_sw.cu:
+    per variant key (variant_key), band offsets a lane and lanes a pair;
+    and packed_max_l, the longest row the full-statistics variants take
+    on it (longer K1 / K2 rows run the template kernel, still counted as
+    K1 / K2; score-only rows of any length run packed)."""
+    lib = load_library()
+    out: Dict = {}
+    for n_stats in (6, 1):
+        for qual_pen in (False, True):
+            opl = lib.banded_sw_offsets_per_lane(n_stats, int(qual_pen))
+            out[variant_key(n_stats, qual_pen)] = dict(
+                offsets_per_lane=opl, lanes_per_pair=BAND // opl)
+    out["packed_max_l"] = lib.banded_sw_packed_max_l()
+    return out
 
 
 def ptxas_report(text: str) -> List[Dict]:
     """Registers and spills per kernel function from nvcc's -Xptxas -v
     output (build/banded_sw.ptxas.txt): name with its template arguments
-    (LOCAL, then N_STATS and QUAL_PEN or offsets per lane), registers a
-    thread, spill store and load bytes, stack frame bytes."""
+    (packed_sw_kernel<LOCAL,NS,QP,OPL>, banded_sw_kernel<LOCAL,QP>),
+    registers a thread, spill store and load bytes, stack frame bytes."""
     out = []
     for block in text.split("Compiling entry function ")[1:]:
         mangled = block.split("'", 2)[1]
-        m = re.search(r"(banded_sw_kernel|k1_packed_kernel)I(.*?)EEv",
-                      mangled)
-        args = re.findall(r"L[bi](\d+)", m.group(2)) if m else []
-        name = f"{m.group(1)}<{','.join(args)}>" if m else mangled
+        # the kernel's source name is the length-prefixed identifier
+        # ending in _kernel before its template arguments (I...E)
+        m = next((m for m in re.finditer(
+            r"(?=(\d+)(\w+?_kernel)I(\w*?)EEv)", mangled)
+            if int(m.group(1)) == len(m.group(2))), None)
+        args = re.findall(r"L[bi](\d+)", m.group(3)) if m else []
+        name = f"{m.group(2)}<{','.join(args)}>" if m else mangled
         regs = re.search(r"Used (\d+) registers", block)
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", block)

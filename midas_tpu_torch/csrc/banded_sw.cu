@@ -2,66 +2,72 @@
 //
 // Replaces the TPU kernel midas_tpu/align/pallas_sw.py::pallas_banded_align
 // (its pl.pallas_call at pallas_sw.py:328, body _make_kernel at :63) and
-// its three variants:
-//   K1  N_STATS=6, flat mismatch   full statistics (species marker
-//       mapping, MARKER_SCORING; the main path)
-//   K2  N_STATS=6, QUAL_PEN        full statistics, bowtie2 --mp quality
-//       penalties (pass 2 of genes / snps)
-//   K3  N_STATS=1                  score, qend, wstart, wend only
-//       (pass 1 of genes / snps), with or without QUAL_PEN
-// Two kernel functions: k1_packed_kernel runs K1 for rows up to
-// K1_PACKED_MAX_L; banded_sw_kernel, a template on the variant flags,
-// runs K2, K3 and longer K1 rows. Both compute exactly what the Pallas
-// kernel computes, bit for bit: the same float32 operations in the same
-// order (NEG = -1e9, d * gap_extend, then (x - gap_open) - gap_extend),
-// the same tie order (diagonal, then deletion, then insertion; on equal
-// best cells the earliest row, then the smallest offset). Build with
-// -fmad=false so no multiply-add is contracted. The plain version is
-// midas_tpu_torch/align/banded.py.
+// its four variants:
+//   K1       NS=6, flat mismatch   full statistics (species marker
+//            mapping, MARKER_SCORING)
+//   K2       NS=6, QP              full statistics, bowtie2 --mp quality
+//            penalties (pass 2 of genes / snps)
+//   K3_qpen  NS=1, QP              score, qend, wstart, wend only (pass 1
+//            of genes / snps)
+//   K3       NS=1, flat mismatch   as K3_qpen (no production caller)
+// One kernel function, packed_sw_kernel<LOCAL, NS, QP, OPL>, runs all four;
+// only full-statistics rows longer than PACKED_MAX_L take the template
+// kernel banded_sw_kernel<LOCAL, QP>, one pair per 16-lane half-warp.
+// Both compute exactly what the Pallas kernel computes, bit for bit: the
+// same float32 operations in the same order (NEG = -1e9, d * gap_extend,
+// then (x - gap_open) - gap_extend; the quality-scaled substitution as
+// pallas_sw.py:126-132), the same tie order (diagonal, then deletion, then
+// insertion; on equal best cells the earliest row, then the smallest
+// offset). Build with -fmad=false so no multiply-add is contracted. The
+// plain version is midas_tpu_torch/align/banded.py.
 //
-// What bounds K1 on the H100. Per main-path batch (8192 reads x 8
-// candidates = 65,536 pairs, 100 bp reads, band D = 16) the DP visits
-// sum(qlen) * D ~= 1.05e8 cells at ~130 float32 / integer operations a
-// cell (tally in chip_smoke.py), about 1.4e10 operations: ~0.2 ms at the
-// card's 67 TFLOP/s float32 rate (a rate that counts a fused multiply-add
-// as two operations; this DP has none, so ~0.4 ms at the real issue rate).
-// It moves ~18 MB in and ~2.4 MB out, ~6 us at 3.35 TB/s. So it is bound
-// by operations, by their latency chain along the rows (row i needs row
-// i-1), and in banded_sw_kernel by warp shuffles: one pair on a 16-lane
-// half-warp, lane = band offset, costs ~65 shuffles a cell (band shifts of
-// H, the fresh flag, I and 12 statistics planes; a 4-step Kogge-Stone
-// over A and 7 payload planes; the row argmax), and Hopper issues 32
-// shuffle lanes a clock per SM, ~0.9 ms for the batch.
+// What bounds the DP on the H100. It visits sum(qlen) * D cells (D = 16);
+// a cell is a chain of ~60-130 float32 / integer operations (tally in
+// chip_smoke.py) and needs row i-1 of its pair, while it moves ~2 bytes
+// in per cell. So every variant is bound by operations, by their latency
+// chain along the rows, and by warp shuffles where the band spans lanes:
+// Hopper issues 32 shuffle lanes a clock per SM. With one band offset a
+// lane (the template kernel) a cell costs ~65 shuffles at full statistics
+// (band shifts of H, the fresh flag, I and 12 statistics planes; a 4-step
+// Kogge-Stone over A and 7 payload planes; the row argmax) and ~20 score
+// only, and every per-row instruction runs 16 times a pair.
 //
-// What k1_packed_kernel does about that. The TPU layout (128 pairs on
+// What packed_sw_kernel does about that. The TPU layout (128 pairs on
 // lanes, the band on sublanes, the state round-tripped through VMEM every
 // row) is not carried over; the whole DP state of a pair lives in
 // registers, and fewer values cross lanes:
-// - The six statistics are small integers, held as 16-bit fields two to
-//   a 32-bit word (3 words), since every select of the recurrence moves
+// - NS=6: the six statistics are small integers, held as 16-bit fields two
+//   to a 32-bit word (3 words), since every select of the recurrence moves
 //   all of them under one condition and every update is one packed add.
 //   The deletion's gap origin rides inside the gap_cols field, biased.
+//   NS=1: one plain 32-bit word, wstart, and no gap origin.
 // - The fresh flag is not carried: in LOCAL mode H is fresh iff it is 0
-//   (a clamp is the only way H becomes 0), in glocal mode iff on row 0;
-//   the fill shifted in above the band is never fresh.
+//   (a clamp is the only way H becomes 0, whatever the mismatch penalty),
+//   in glocal mode iff on row 0; the fill shifted in above the band is
+//   never fresh.
 // - One pair runs on G = 16 / OPL lanes, lane g holding offsets
-//   g*OPL .. g*OPL + OPL - 1 (OPL = K1_OFFSETS_PER_LANE = 4: 4 lanes a
-//   pair, 8 pairs a warp, ~90 registers and no spills; of 1, 2, 4 and 8
-//   offsets a lane, 4 was the fastest on the H100). Insertion predecessors
-//   inside a lane need no shuffle; the deletion scan is an in-lane
-//   prefix, a log2(G)-step Kogge-Stone across lanes and an in-lane
-//   fix-up, equal to the 16-lane scan bit for bit because its combine
-//   (take the lower offsets' element only if strictly greater) is
+//   g*OPL .. g*OPL + OPL - 1; OPL is one constant per variant (below).
+//   Insertion predecessors inside a lane need no shuffle; the deletion
+//   scan is an in-lane prefix, a log2(G)-step Kogge-Stone across lanes and
+//   an in-lane fix-up, equal to the 16-lane scan bit for bit because its
+//   combine (take the lower offsets' element only if strictly greater) is
 //   associative and does no arithmetic. On a row that improves the best,
 //   each lane keeps the first of its offsets holding the row maximum; the
-//   first such lane is picked once, after the last row. ~5.5 shuffles a
-//   cell (22 a lane-row) instead of ~65.
-// - Four query rows come in one 32-bit load where rows are 4-byte
-//   aligned, and each lane slides its window of the reference by one byte
-//   a row.
+//   first such lane is picked once, after the last row. Shuffles a cell:
+//   NS=6 at 4 offsets a lane 5.5 (22 a lane-row), at 2 offsets 13.5 (27
+//   a lane-row); NS=1 at 4 offsets a lane 3 (12 a lane-row).
+// - The query byte, the qpen byte, loop control and addressing are paid
+//   once a row for OPL cells; four query rows, and four qpen rows, come in
+//   one 32-bit load where that array's rows are 4-byte aligned, and each
+//   lane slides its window of the reference by one byte a row.
 // Each group stops at its own pair's qlen (exact: LOCAL mode masks rows
 // >= qlen, glocal mode records at row qlen-1) and masks its own ragged
 // edge, so no padding of P is needed.
+// What then bounds each variant at its path's shape: K1 (65,536 pairs a
+// species batch) and K3_qpen (32,768 pairs, genes pass 1) fill the card
+// and are bound by instruction issue, shuffles included; K2 (8,192 pairs,
+// one per read in genes pass 2) gives too few warps to hide the latency
+// of its row chain, so it takes fewer offsets a lane and more lanes.
 //
 // C interface (ctypes): banded_sw_launch(...) launches on the given
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -75,17 +81,21 @@ constexpr int BAND = 16;
 constexpr float NEG = -1e9f;
 constexpr int THREADS = 256;   // 16 pairs a block in banded_sw_kernel
 
-template <bool LOCAL, int NS, bool QP>
+// ---------------------------------------------------------------------------
+// The template kernel: full statistics, one pair per 16-lane half-warp,
+// lane = band offset. Runs only the NS=6 rows above PACKED_MAX_L.
+
+template <bool LOCAL, bool QP>
 __global__ void __launch_bounds__(THREADS)
 banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
                  const int32_t* __restrict__ qlens,   // [P]
                  const int8_t* __restrict__ ref,      // [P, L + BAND - 1]
                  const int8_t* __restrict__ qpen,     // [P, L] or null
                  float* __restrict__ score,           // [P]
-                 int32_t* __restrict__ stats,         // [NS == 6 ? 8 : 3, P]
+                 int32_t* __restrict__ stats,         // [8, P]
                  int P, int L, float ma, float mi, float go, float ge,
                  float npen) {
-  constexpr int NP = NS == 6 ? NS + 1 : NS;   // scan payload (+ origin d)
+  constexpr int NS = 6, NP = NS + 1;   // statistics; scan payload + origin d
   const int lane = threadIdx.x & 31;
   const int d = lane & (BAND - 1);
   const unsigned half_shift = lane & 16;
@@ -129,16 +139,12 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
 
     // stats of a path starting with a diagonal move at row i
     float T1st[NS];
-    if constexpr (NS == 6) {
-      T1st[0] = (Hf ? 0.f : Hst[0]) + is_match;
-      T1st[1] = (Hf ? 0.f : Hst[1]) + (1.f - is_match);
-      T1st[2] = Hf ? 0.f : Hst[2];
-      T1st[3] = Hf ? 0.f : Hst[3];
-      T1st[4] = Hf ? fi : Hst[4];
-      T1st[5] = Hf ? fi + df : Hst[5];
-    } else {
-      T1st[0] = Hf ? fi + df : Hst[0];
-    }
+    T1st[0] = (Hf ? 0.f : Hst[0]) + is_match;
+    T1st[1] = (Hf ? 0.f : Hst[1]) + (1.f - is_match);
+    T1st[2] = Hf ? 0.f : Hst[2];
+    T1st[3] = Hf ? 0.f : Hst[3];
+    T1st[4] = Hf ? fi : Hst[4];
+    T1st[5] = Hf ? fi + df : Hst[5];
     const float T1 = H + sub;
 
     // insertion: predecessor at offset d+1 of the previous row
@@ -159,16 +165,12 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
       for (int s = 0; s < NS; ++s) Hsts[s] = Ists[s] = 0.f;
     }
     float open_st[NS];
-    if constexpr (NS == 6) {
-      open_st[0] = Hfs ? 0.f : Hsts[0];
-      open_st[1] = Hfs ? 0.f : Hsts[1];
-      open_st[2] = Hfs ? 0.f : Hsts[2];
-      open_st[3] = Hfs ? 0.f : Hsts[3];
-      open_st[4] = Hfs ? fi : Hsts[4];
-      open_st[5] = Hfs ? (fi + 1.f) + df : Hsts[5];
-    } else {
-      open_st[0] = Hfs ? (fi + 1.f) + df : Hsts[0];
-    }
+    open_st[0] = Hfs ? 0.f : Hsts[0];
+    open_st[1] = Hfs ? 0.f : Hsts[1];
+    open_st[2] = Hfs ? 0.f : Hsts[2];
+    open_st[3] = Hfs ? 0.f : Hsts[3];
+    open_st[4] = Hfs ? fi : Hsts[4];
+    open_st[5] = Hfs ? (fi + 1.f) + df : Hsts[5];
     const float i_ext = Is - ge;
     const float i_open = (Hs - go) - ge;
     const bool take_ext = i_ext >= i_open;
@@ -176,10 +178,8 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
     float Inst[NS];
 #pragma unroll
     for (int s = 0; s < NS; ++s) Inst[s] = take_ext ? Ists[s] : open_st[s];
-    if constexpr (NS == 6) {
-      Inst[2] = Inst[2] + 1.f;
-      Inst[3] = Inst[3] + (take_ext ? 0.f : 1.f);
-    }
+    Inst[2] = Inst[2] + 1.f;
+    Inst[3] = Inst[3] + (take_ext ? 0.f : 1.f);
 
     // pre-deletion best; diagonal wins ties over insertion
     const bool take_I = In > T1;
@@ -199,7 +199,7 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
     } else {
       A = HnoD + dge;
     }
-    if constexpr (NS == 6) pay[NS] = df;   // gap-origin payload (full stats only)
+    pay[NS] = df;   // gap-origin payload
 
     // deletion: exclusive Kogge-Stone prefix max with payload
 #pragma unroll
@@ -229,17 +229,13 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
     }
     const float Dv = (eA - go) - dge;
     float Dst[NS];
-    if constexpr (NS == 6) {
-      const float gap_len = df - ep[NS];
-      Dst[0] = ep[0];
-      Dst[1] = ep[1];
-      Dst[2] = ep[2] + gap_len;
-      Dst[3] = ep[3] + 1.f;
-      Dst[4] = ep[4];
-      Dst[5] = ep[5];
-    } else {
-      Dst[0] = ep[0];
-    }
+    const float gap_len = df - ep[NS];
+    Dst[0] = ep[0];
+    Dst[1] = ep[1];
+    Dst[2] = ep[2] + gap_len;
+    Dst[3] = ep[3] + 1.f;
+    Dst[4] = ep[4];
+    Dst[5] = ep[5];
 
     // final H: priority diagonal > deletion > insertion
     const bool take_D = Dv > T1;
@@ -291,29 +287,22 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
 
   if (d == 0) {
     score[p] = best;
-    const int qend = __float2int_rz(best_i + 1.f);
-    const int wend = __float2int_rz((best_i + best_d) + 1.f);
-    if constexpr (NS == 6) {
-      stats[0LL * P + p] = __float2int_rz(best_st[4]);   // qstart
-      stats[1LL * P + p] = qend;
-      stats[2LL * P + p] = __float2int_rz(best_st[5]);   // wstart
-      stats[3LL * P + p] = wend;
-      stats[4LL * P + p] = __float2int_rz(best_st[0]);   // matches
-      stats[5LL * P + p] = __float2int_rz(best_st[1]);   // mismatches
-      stats[6LL * P + p] = __float2int_rz(best_st[2]);   // gap_cols
-      stats[7LL * P + p] = __float2int_rz(best_st[3]);   // gap_opens
-    } else {
-      stats[0LL * P + p] = qend;
-      stats[1LL * P + p] = __float2int_rz(best_st[0]);   // wstart
-      stats[2LL * P + p] = wend;
-    }
+    stats[0LL * P + p] = __float2int_rz(best_st[4]);   // qstart
+    stats[1LL * P + p] = __float2int_rz(best_i + 1.f);   // qend
+    stats[2LL * P + p] = __float2int_rz(best_st[5]);   // wstart
+    stats[3LL * P + p] = __float2int_rz((best_i + best_d) + 1.f);   // wend
+    stats[4LL * P + p] = __float2int_rz(best_st[0]);   // matches
+    stats[5LL * P + p] = __float2int_rz(best_st[1]);   // mismatches
+    stats[6LL * P + p] = __float2int_rz(best_st[2]);   // gap_cols
+    stats[7LL * P + p] = __float2int_rz(best_st[3]);   // gap_opens
   }
 }
 
 // ---------------------------------------------------------------------------
-// K1, packed: N_STATS = 6, flat mismatch, LOCAL or glocal (see the header).
+// The packed kernel: every variant, LOCAL or glocal (see the header).
 
-// A packed statistics word holds two 16-bit fields, lo | hi << 16:
+// With full statistics (NS = 6) a cell's statistics are three words, each
+// holding two 16-bit fields, lo | hi << 16:
 //   word 0  matches | mismatches
 //   word 1  gap_cols | gap_opens
 //   word 2  qstart | wstart
@@ -326,57 +315,102 @@ banded_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
 // [0, BAND), so deletion columns <= L + BAND - 1 and gap_cols, gap_opens
 // <= 2L + 15. In the deletion scan gap_cols rides biased as
 // gap_cols + BAND - origin <= 2L + 31 (origin = the gap's first offset).
-// All fields stay below 2^16 for L <= 32,752; longer rows take the
-// template kernel above.
-constexpr int K1_PACKED_MAX_L = 32752;
+// All fields stay below 2^16 for L <= 32,752; longer full-statistics rows
+// take the template kernel above. Score only (NS = 1), the one word is
+// wstart as a plain 32-bit integer, so every row length takes this kernel.
+constexpr int PACKED_MAX_L = 32752;
 
-// Band offsets a lane holds in the packed kernel.
+// Band offsets a lane, one constant per variant: the fastest of the
+// layouts tried on the H100 at the variant's path shape (PERF.md). At 2
+// offsets a lane K2's 8,192 pairs make 65,536 threads, twice the warps
+// of 4 offsets a lane.
 constexpr int K1_OFFSETS_PER_LANE = 4;
+constexpr int K2_OFFSETS_PER_LANE = 2;
+constexpr int K3_OFFSETS_PER_LANE = 4;   // K3 and K3_qpen
 
-// One band offset's scan element: the key A and the three payload words.
+constexpr int offsets_per_lane(int ns, bool qp) {
+  return ns == 1 ? K3_OFFSETS_PER_LANE
+                 : (qp ? K2_OFFSETS_PER_LANE : K1_OFFSETS_PER_LANE);
+}
+
+// One band offset's scan element: the key A and the statistics words.
+// The helpers below build it by aggregate initialisation, one form per
+// word count: built word by word in a loop, K1's LOCAL instantiation took
+// 89 registers instead of 86 (ptxas, sm_90a).
+template <int NW>
 struct ScanEl {
   float A;
-  uint32_t w[3];
+  uint32_t w[NW];
 };
 
 // The deletion scan's combine: the lower offsets' element wins only if
 // strictly greater. It is associative and does no arithmetic, so any
 // grouping gives the 16-lane Kogge-Stone's result bit for bit.
-__device__ __forceinline__ ScanEl take_lower(const ScanEl& lo,
-                                             const ScanEl& hi) {
+template <int NW>
+__device__ __forceinline__ ScanEl<NW> take_lower(const ScanEl<NW>& lo,
+                                                 const ScanEl<NW>& hi) {
   const bool t = lo.A > hi.A;
-  return ScanEl{t ? lo.A : hi.A,
-                {t ? lo.w[0] : hi.w[0], t ? lo.w[1] : hi.w[1],
-                 t ? lo.w[2] : hi.w[2]}};
+  if constexpr (NW == 3)
+    return ScanEl<NW>{t ? lo.A : hi.A,
+                      {t ? lo.w[0] : hi.w[0], t ? lo.w[1] : hi.w[1],
+                       t ? lo.w[2] : hi.w[2]}};
+  else
+    return ScanEl<NW>{t ? lo.A : hi.A, {t ? lo.w[0] : hi.w[0]}};
 }
 
-__device__ __forceinline__ ScanEl shfl_up_el(unsigned mask, const ScanEl& e,
-                                             int sh, int width) {
-  return ScanEl{__shfl_up_sync(mask, e.A, sh, width),
-                {__shfl_up_sync(mask, e.w[0], sh, width),
-                 __shfl_up_sync(mask, e.w[1], sh, width),
-                 __shfl_up_sync(mask, e.w[2], sh, width)}};
+template <int NW>
+__device__ __forceinline__ ScanEl<NW> shfl_up_el(unsigned mask,
+                                                 const ScanEl<NW>& x, int sh,
+                                                 int width) {
+  if constexpr (NW == 3)
+    return ScanEl<NW>{__shfl_up_sync(mask, x.A, sh, width),
+                      {__shfl_up_sync(mask, x.w[0], sh, width),
+                       __shfl_up_sync(mask, x.w[1], sh, width),
+                       __shfl_up_sync(mask, x.w[2], sh, width)}};
+  else
+    return ScanEl<NW>{__shfl_up_sync(mask, x.A, sh, width),
+                      {__shfl_up_sync(mask, x.w[0], sh, width)}};
 }
 
-// Fill of the scan below offset 0: A = NEG, empty statistics, origin 0
-// (biased gap_cols field BAND).
-__device__ __forceinline__ ScanEl scan_fill() {
-  return ScanEl{NEG, {0u, (uint32_t)BAND, 0u}};
+// Fill of the scan below offset 0: A = NEG, empty statistics; with full
+// statistics, origin 0 (biased gap_cols field BAND).
+template <int NW>
+__device__ __forceinline__ ScanEl<NW> scan_fill() {
+  if constexpr (NW == 3)
+    return ScanEl<NW>{NEG, {0u, (uint32_t)BAND, 0u}};
+  else
+    return ScanEl<NW>{NEG, {0u}};
 }
 
 __device__ __forceinline__ uint32_t pack2(int lo, int hi) {
   return (uint32_t)lo | ((uint32_t)hi << 16);
 }
 
-template <bool LOCAL, int OPL>
+// Rows i .. i+3 of one pair's byte row (query or qpen), byte k of the
+// word = row i + k: one 32-bit load where the rows are 4-byte aligned,
+// else bytes up to `rows`.
+__device__ __forceinline__ uint32_t load_rows4(const int8_t* row, int i,
+                                               int rows, bool aligned) {
+  if (aligned) return *(const uint32_t*)(row + i);
+  uint32_t w = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (i + k < rows) w |= (uint32_t)(uint8_t)row[i + k] << (8 * k);
+  return w;
+}
+
+template <bool LOCAL, int NS, bool QP, int OPL>
 __global__ void __launch_bounds__(THREADS)
-k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
+packed_sw_kernel(const int8_t* __restrict__ query,    // [P, L]
                  const int32_t* __restrict__ qlens,   // [P]
                  const int8_t* __restrict__ ref,      // [P, L + BAND - 1]
+                 const int8_t* __restrict__ qpen,     // [P, L] if QP
                  float* __restrict__ score,           // [P]
-                 int32_t* __restrict__ stats,         // [8, P]
-                 int P, int L, float ma, float mi, float go, float ge) {
-  constexpr int G = BAND / OPL;   // lanes per pair
+                 int32_t* __restrict__ stats,         // [NS == 6 ? 8 : 3, P]
+                 int P, int L, float ma, float mi, float go, float ge,
+                 float npen) {
+  constexpr int NW = NS == 6 ? 3 : 1;   // statistics words of a cell
+  constexpr int G = BAND / OPL;         // lanes per pair
   const int lane = threadIdx.x & 31;
   const int g = lane & (G - 1);
   const int base = lane & ~(G - 1);
@@ -386,17 +420,20 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
 
   const int W = L + BAND - 1;
   const int8_t* q = query + p * L;
+  const int8_t* qp = QP ? qpen + p * L : nullptr;
   const int8_t* r = ref + p * W + g * OPL;   // this lane's first offset
   const int qlen = qlens[p];
   const int rows = qlen < L ? qlen : L;
   const bool top = g == G - 1;
-  // 4 query rows per 32-bit load where the rows are 4-byte aligned
+  // each array's own test: 4 rows per 32-bit load where its rows are
+  // 4-byte aligned
   const bool q4 = (L & 3) == 0 && (((uintptr_t)query) & 3) == 0;
+  const bool qp4 = QP && (L & 3) == 0 && (((uintptr_t)qpen) & 3) == 0;
 
   int dof[OPL];
   float dge[OPL];
   float H[OPL], I[OPL];
-  uint32_t Hw[OPL][3], Iw[OPL][3];
+  uint32_t Hw[OPL][NW], Iw[OPL][NW];
   int rb[OPL];   // reference bytes of this lane's offsets at the current row
 #pragma unroll
   for (int j = 0; j < OPL; ++j) {
@@ -405,7 +442,7 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
     H[j] = 0.f;
     I[j] = NEG;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) Hw[j][k] = Iw[j][k] = 0u;
+    for (int k = 0; k < NW; ++k) Hw[j][k] = Iw[j][k] = 0u;
     rb[j] = 0;
   }
 #pragma unroll
@@ -415,21 +452,19 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
   // group picks the first such lane once, after the last row
   float best = NEG;
   int best_i = 0, best_j = OPL;
-  uint32_t bw[3] = {0u, 0u, 0u};
-  uint32_t qword = 0u;
+  uint32_t bw[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) bw[k] = 0u;
+  uint32_t qword = 0u, pword = 0u;
 
   for (int i = 0; i < rows; ++i) {
     if ((i & 3) == 0) {
-      if (q4) {
-        qword = *(const uint32_t*)(q + i);
-      } else {
-        qword = 0u;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (i + k < rows) qword |= (uint32_t)(uint8_t)q[i + k] << (8 * k);
-      }
+      qword = load_rows4(q, i, rows, q4);
+      if constexpr (QP) pword = load_rows4(qp, i, rows, qp4);
     }
     const int qi = (int)(int8_t)(qword >> (8 * (i & 3)));
+    float qpf = 0.f;   // this row's mismatch penalty (QP)
+    if constexpr (QP) qpf = (float)(int8_t)(pword >> (8 * (i & 3)));
     // reference window: one new byte a row, the others slide down
 #pragma unroll
     for (int j = 0; j + 1 < OPL; ++j) rb[j] = rb[j + 1];
@@ -440,43 +475,54 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
     // first offset of the previous row; above the band, the fill
     float upH = __shfl_down_sync(gmask, H[0], 1, G);
     float upI = __shfl_down_sync(gmask, I[0], 1, G);
-    uint32_t upHw[3], upIw[3];
+    uint32_t upHw[NW], upIw[NW];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < NW; ++k) {
       upHw[k] = __shfl_down_sync(gmask, Hw[0][k], 1, G);
       upIw[k] = __shfl_down_sync(gmask, Iw[0][k], 1, G);
     }
     if (top) {
       upH = upI = NEG;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) upHw[k] = upIw[k] = 0u;
+      for (int k = 0; k < NW; ++k) upHw[k] = upIw[k] = 0u;
     }
 
     float T1[OPL], In[OPL];
-    uint32_t T1w[OPL][3], Inw[OPL][3];
-    ScanEl S[OPL];   // scan elements, then their in-lane inclusive prefix
+    uint32_t T1w[OPL][NW], Inw[OPL][NW];
+    ScanEl<NW> S[OPL];   // scan elements, then their in-lane inclusive prefix
 #pragma unroll
     for (int j = 0; j < OPL; ++j) {
       const int rj = rb[j];
       const bool m = qi == rj && qi < 4 && rj < 4;
-      const float sub = m ? ma : mi;
+      float sub;
+      if constexpr (QP) {
+        // a read N costs npen, a reference N -mismatch, a mismatch qpen
+        const float pen = qi >= 4 ? npen : (rj >= 4 ? -mi : qpf);
+        sub = m ? ma : -pen;
+      } else {
+        sub = m ? ma : mi;
+      }
       // H is fresh (its path starts here) iff LOCAL clamped it, which is
       // the only way it becomes 0, or, in glocal mode, on row 0. A fresh
       // H has empty statistics.
       const bool hf = LOCAL ? H[j] == 0.f : row0;
       T1[j] = H[j] + sub;
-      T1w[j][0] = Hw[j][0] + (m ? 1u : 0x10000u);
-      T1w[j][1] = Hw[j][1];
-      T1w[j][2] = hf ? pack2(i, i + dof[j]) : Hw[j][2];
+      if constexpr (NS == 6) {
+        T1w[j][0] = Hw[j][0] + (m ? 1u : 0x10000u);
+        T1w[j][1] = Hw[j][1];
+        T1w[j][2] = hf ? pack2(i, i + dof[j]) : Hw[j][2];
+      } else {
+        T1w[j][0] = hf ? (uint32_t)(i + dof[j]) : Hw[j][0];
+      }
 
       // insertion: predecessor at offset d + 1 of the previous row
       const bool last = j == OPL - 1;
       const int jn = last ? j : j + 1;
       const float pH = last ? upH : H[jn];
       const float pI = last ? upI : I[jn];
-      uint32_t pHw[3], pIw[3];
+      uint32_t pHw[NW], pIw[NW];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < NW; ++k) {
         pHw[k] = last ? upHw[k] : Hw[jn][k];
         pIw[k] = last ? upIw[k] : Iw[jn][k];
       }
@@ -486,72 +532,85 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
       const float i_open = (pH - go) - ge;
       const bool take_ext = i_ext >= i_open;
       In[j] = take_ext ? i_ext : i_open;
-      Inw[j][0] = take_ext ? pIw[0] : pHw[0];
-      Inw[j][1] = (take_ext ? pIw[1] : pHw[1]) + (take_ext ? 1u : 0x10001u);
-      Inw[j][2] = take_ext ? pIw[2]
-                           : (pf ? pack2(i, (i + 1) + dof[j]) : pHw[2]);
+      if constexpr (NS == 6) {
+        Inw[j][0] = take_ext ? pIw[0] : pHw[0];
+        Inw[j][1] = (take_ext ? pIw[1] : pHw[1]) + (take_ext ? 1u : 0x10001u);
+        Inw[j][2] = take_ext ? pIw[2]
+                             : (pf ? pack2(i, (i + 1) + dof[j]) : pHw[2]);
+      } else {
+        Inw[j][0] = take_ext ? pIw[0]
+                             : (pf ? (uint32_t)((i + 1) + dof[j]) : pHw[0]);
+      }
 
       // pre-deletion best; diagonal wins ties over insertion
       const bool take_I = In[j] > T1[j];
       const float h = take_I ? In[j] : T1[j];
-      ScanEl e;
+      ScanEl<NW> e;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) e.w[k] = take_I ? Inw[j][k] : T1w[j][k];
+      for (int k = 0; k < NW; ++k) e.w[k] = take_I ? Inw[j][k] : T1w[j][k];
       if constexpr (LOCAL) {
         const bool clamp = h <= 0.f;
-        if (clamp) e.w[0] = e.w[1] = e.w[2] = 0u;
+        if (clamp) {
+#pragma unroll
+          for (int k = 0; k < NW; ++k) e.w[k] = 0u;
+        }
         e.A = clamp ? NEG : h + dge[j];
       } else {
         e.A = h + dge[j];
       }
-      e.w[1] += (uint32_t)(BAND - dof[j]);   // bias: gap_cols - origin + BAND
+      if constexpr (NS == 6)
+        e.w[1] += (uint32_t)(BAND - dof[j]);   // bias: gap_cols - origin + BAND
       S[j] = j ? take_lower(S[j - 1], e) : e;
     }
 
     // deletion: exclusive prefix over the band. In-lane prefix (above),
     // Kogge-Stone over the lanes' totals, shift to the exclusive form.
-    const ScanEl mine = S[OPL - 1];
-    ScanEl X = mine;
+    ScanEl<NW> X = S[OPL - 1];
 #pragma unroll
     for (int sh = 1; sh < G; sh <<= 1) {
-      ScanEl s = shfl_up_el(gmask, X, sh, G);
-      if (g < sh) s = scan_fill();
+      ScanEl<NW> s = shfl_up_el(gmask, X, sh, G);
+      if (g < sh) s = scan_fill<NW>();
       X = take_lower(s, X);
     }
-    ScanEl Xe = shfl_up_el(gmask, X, 1, G);
-    if (g == 0) Xe = scan_fill();
+    ScanEl<NW> Xe = shfl_up_el(gmask, X, 1, G);
+    if (g == 0) Xe = scan_fill<NW>();
 
     float Hn[OPL];
-    uint32_t Hnw[OPL][3];
+    uint32_t Hnw[OPL][NW];
 #pragma unroll
     for (int j = 0; j < OPL; ++j) {
-      const ScanEl E = j ? take_lower(Xe, S[j - 1]) : Xe;
+      const ScanEl<NW> E = j ? take_lower(Xe, S[j - 1]) : Xe;
       const float Dv = (E.A - go) - dge[j];
-      uint32_t Dw[3];
-      Dw[0] = E.w[0];
-      // gap_cols + (d - origin), and one more gap open
-      Dw[1] = E.w[1] + (uint32_t)(dof[j] - BAND) + 0x10000u;
-      Dw[2] = E.w[2];
+      uint32_t Dw[NW];
+      if constexpr (NS == 6) {
+        Dw[0] = E.w[0];
+        // gap_cols + (d - origin), and one more gap open
+        Dw[1] = E.w[1] + (uint32_t)(dof[j] - BAND) + 0x10000u;
+        Dw[2] = E.w[2];
+      } else {
+        Dw[0] = E.w[0];
+      }
 
       // final H: priority diagonal > deletion > insertion
       const bool take_D = Dv > T1[j];
       float hn = take_D ? Dv : T1[j];
-      uint32_t w[3];
+      uint32_t w[NW];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) w[k] = take_D ? Dw[k] : T1w[j][k];
+      for (int k = 0; k < NW; ++k) w[k] = take_D ? Dw[k] : T1w[j][k];
       const bool take_I2 = In[j] > hn;
       hn = take_I2 ? In[j] : hn;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) w[k] = take_I2 ? Inw[j][k] : w[k];
+      for (int k = 0; k < NW; ++k) w[k] = take_I2 ? Inw[j][k] : w[k];
       if constexpr (LOCAL) {
         if (hn <= 0.f) {
           hn = 0.f;
-          w[0] = w[1] = w[2] = 0u;
+#pragma unroll
+          for (int k = 0; k < NW; ++k) w[k] = 0u;
         }
       }
       Hn[j] = hn;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) Hnw[j][k] = w[k];
+      for (int k = 0; k < NW; ++k) Hnw[j][k] = w[k];
     }
 
     // best tracking: the first offset holding the row maximum (rows here
@@ -572,7 +631,7 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
         if (Hn[j] == mx) {
           best_j = j;
 #pragma unroll
-          for (int k = 0; k < 3; ++k) bw[k] = Hnw[j][k];
+          for (int k = 0; k < NW; ++k) bw[k] = Hnw[j][k];
         }
       }
     }
@@ -582,7 +641,7 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
       H[j] = Hn[j];
       I[j] = In[j];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < NW; ++k) {
         Hw[j][k] = Hnw[j][k];
         Iw[j][k] = Inw[j][k];
       }
@@ -596,65 +655,71 @@ k1_packed_kernel(const int8_t* __restrict__ query,    // [P, L]
   const int src = hits ? __ffs(hits) - 1 : 0;
   const int best_d = __shfl_sync(gmask, g * OPL + best_j, src, G);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) bw[k] = __shfl_sync(gmask, bw[k], src, G);
+  for (int k = 0; k < NW; ++k) bw[k] = __shfl_sync(gmask, bw[k], src, G);
   if (g == 0) {
+    const int qend = best_i + 1;
+    const int wend = best_i + (hits ? best_d : 0) + 1;
     score[p] = best;
-    stats[0LL * P + p] = (int32_t)(bw[2] & 0xFFFFu);   // qstart
-    stats[1LL * P + p] = best_i + 1;                   // qend
-    stats[2LL * P + p] = (int32_t)(bw[2] >> 16);       // wstart
-    stats[3LL * P + p] = best_i + (hits ? best_d : 0) + 1;   // wend
-    stats[4LL * P + p] = (int32_t)(bw[0] & 0xFFFFu);   // matches
-    stats[5LL * P + p] = (int32_t)(bw[0] >> 16);       // mismatches
-    stats[6LL * P + p] = (int32_t)(bw[1] & 0xFFFFu);   // gap_cols
-    stats[7LL * P + p] = (int32_t)(bw[1] >> 16);       // gap_opens
+    if constexpr (NS == 6) {
+      stats[0LL * P + p] = (int32_t)(bw[2] & 0xFFFFu);   // qstart
+      stats[1LL * P + p] = qend;
+      stats[2LL * P + p] = (int32_t)(bw[2] >> 16);       // wstart
+      stats[3LL * P + p] = wend;
+      stats[4LL * P + p] = (int32_t)(bw[0] & 0xFFFFu);   // matches
+      stats[5LL * P + p] = (int32_t)(bw[0] >> 16);       // mismatches
+      stats[6LL * P + p] = (int32_t)(bw[1] & 0xFFFFu);   // gap_cols
+      stats[7LL * P + p] = (int32_t)(bw[1] >> 16);       // gap_opens
+    } else {
+      stats[0LL * P + p] = qend;
+      stats[1LL * P + p] = (int32_t)bw[0];               // wstart
+      stats[2LL * P + p] = wend;
+    }
   }
 }
 
-template <bool LOCAL>
-void launch_k1_packed(const int8_t* query, const int32_t* qlens,
-                      const int8_t* ref, float* score, int32_t* stats, int P,
-                      int L, float ma, float mi, float go, float ge,
-                      cudaStream_t stream) {
-  constexpr int OPL = K1_OFFSETS_PER_LANE;
-  const long long threads = (long long)P * (BAND / OPL);
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  k1_packed_kernel<LOCAL, OPL><<<blocks, THREADS, 0, stream>>>(
-      query, qlens, ref, score, stats, P, L, ma, mi, go, ge);
-}
+struct Args {
+  const int8_t* query;
+  const int32_t* qlens;
+  const int8_t* ref;
+  const int8_t* qpen;
+  float* score;
+  int32_t* stats;
+  int P, L;
+  float ma, mi, go, ge, npen;
+  cudaStream_t stream;
+};
 
 template <bool LOCAL, int NS, bool QP>
-void launch(const int8_t* query, const int32_t* qlens, const int8_t* ref,
-            const int8_t* qpen, float* score, int32_t* stats, int P, int L,
-            float ma, float mi, float go, float ge, float npen,
-            cudaStream_t stream) {
-  const long long threads = (long long)P * BAND;
+void launch_packed(const Args& a) {
+  constexpr int OPL = offsets_per_lane(NS, QP);
+  const long long threads = (long long)a.P * (BAND / OPL);
   const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  banded_sw_kernel<LOCAL, NS, QP><<<blocks, THREADS, 0, stream>>>(
-      query, qlens, ref, qpen, score, stats, P, L, ma, mi, go, ge, npen);
+  packed_sw_kernel<LOCAL, NS, QP, OPL><<<blocks, THREADS, 0, a.stream>>>(
+      a.query, a.qlens, a.ref, a.qpen, a.score, a.stats, a.P, a.L, a.ma,
+      a.mi, a.go, a.ge, a.npen);
+}
+
+template <bool LOCAL, bool QP>
+void launch_template(const Args& a) {
+  const long long threads = (long long)a.P * BAND;
+  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  banded_sw_kernel<LOCAL, QP><<<blocks, THREADS, 0, a.stream>>>(
+      a.query, a.qlens, a.ref, a.qpen, a.score, a.stats, a.P, a.L, a.ma,
+      a.mi, a.go, a.ge, a.npen);
 }
 
 template <bool LOCAL>
-void dispatch(int n_stats, const int8_t* query, const int32_t* qlens,
-              const int8_t* ref, const int8_t* qpen, float* score,
-              int32_t* stats, int P, int L, float ma, float mi, float go,
-              float ge, float npen, cudaStream_t stream) {
-  if (n_stats == 6) {
-    if (qpen)
-      launch<LOCAL, 6, true>(query, qlens, ref, qpen, score, stats, P, L, ma,
-                             mi, go, ge, npen, stream);
-    else if (L <= K1_PACKED_MAX_L)
-      launch_k1_packed<LOCAL>(query, qlens, ref, score, stats, P, L, ma, mi,
-                              go, ge, stream);
-    else
-      launch<LOCAL, 6, false>(query, qlens, ref, qpen, score, stats, P, L, ma,
-                              mi, go, ge, npen, stream);
+void dispatch(int n_stats, const Args& a) {
+  const bool qp = a.qpen != nullptr;
+  if (n_stats == 1) {
+    if (qp) launch_packed<LOCAL, 1, true>(a);
+    else launch_packed<LOCAL, 1, false>(a);
+  } else if (a.L <= PACKED_MAX_L) {
+    if (qp) launch_packed<LOCAL, 6, true>(a);
+    else launch_packed<LOCAL, 6, false>(a);
   } else {
-    if (qpen)
-      launch<LOCAL, 1, true>(query, qlens, ref, qpen, score, stats, P, L, ma,
-                             mi, go, ge, npen, stream);
-    else
-      launch<LOCAL, 1, false>(query, qlens, ref, qpen, score, stats, P, L, ma,
-                              mi, go, ge, npen, stream);
+    if (qp) launch_template<LOCAL, true>(a);
+    else launch_template<LOCAL, false>(a);
   }
 }
 
@@ -668,20 +733,23 @@ extern "C" int banded_sw_launch(const void* query, const void* qlens,
                                 void* stream) {
   if (P <= 0 || L <= 0 || (n_stats != 6 && n_stats != 1))
     return (int)cudaErrorInvalidValue;
-  const int8_t* q = (const int8_t*)query;
-  const int32_t* ql = (const int32_t*)qlens;
-  const int8_t* r = (const int8_t*)ref;
-  const int8_t* qp = (const int8_t*)qpen;
-  cudaStream_t s = (cudaStream_t)stream;
+  const Args a{(const int8_t*)query, (const int32_t*)qlens,
+               (const int8_t*)ref,   (const int8_t*)qpen,
+               (float*)score,        (int32_t*)stats,
+               P, L, ma, mi, go, ge, npen, (cudaStream_t)stream};
   if (local)
-    dispatch<true>(n_stats, q, ql, r, qp, (float*)score, (int32_t*)stats, P,
-                   L, ma, mi, go, ge, npen, s);
+    dispatch<true>(n_stats, a);
   else
-    dispatch<false>(n_stats, q, ql, r, qp, (float*)score, (int32_t*)stats, P,
-                    L, ma, mi, go, ge, npen, s);
+    dispatch<false>(n_stats, a);
   return (int)cudaGetLastError();
 }
 
-// The longest row K1's packed kernel takes (longer ones go to the
-// template kernel).
-extern "C" int banded_sw_k1_packed_max_l(void) { return K1_PACKED_MAX_L; }
+// The packed kernel's band offsets a lane for a variant (n_stats 6 or 1,
+// with or without qpen).
+extern "C" int banded_sw_offsets_per_lane(int n_stats, int qual_pen) {
+  return offsets_per_lane(n_stats, qual_pen != 0);
+}
+
+// The longest row the full-statistics variants take on the packed kernel
+// (longer ones go to the template kernel).
+extern "C" int banded_sw_packed_max_l(void) { return PACKED_MAX_L; }

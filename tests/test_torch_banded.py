@@ -110,19 +110,38 @@ def test_no_fallback_from_the_card():
             torch.from_numpy(q).to("cuda")
 
 
-def test_ptxas_report():
-    """Registers and spills per kernel function, from nvcc -Xptxas -v."""
+PTXAS_CASES = [
+    ("_ZN12_GLOBAL__N_116k1_packed_kernelILb1ELi2EEEvPKaPKiS3_PfS5_iiffff",
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+     56, dict(function="k1_packed_kernel<1,2>", registers=56, stack_frame=0,
+              spill_stores=0, spill_loads=0)),
+    ("_ZN12_GLOBAL__N_116banded_sw_kernelILb0ELi6ELb1EEEvPKaPKiS3_S3_PfS5_"
+     "iifffff",
+     "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+     63, dict(function="banded_sw_kernel<0,6,1>", registers=63,
+              stack_frame=8, spill_stores=4, spill_loads=8)),
+    ("_ZN45_GLOBAL__N__1d25c07f_12_banded_sw_cu_4a233c2d16packed_sw_kernel"
+     "ILb1ELi1ELb1ELi8EEEvPKaPKiS2_S2_PfPiiifffff",
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+     72, dict(function="packed_sw_kernel<1,1,1,8>", registers=72,
+              stack_frame=0, spill_stores=0, spill_loads=0)),
+]
+
+
+@pytest.mark.parametrize("mangled,frame,regs,want", PTXAS_CASES,
+                         ids=["k1_packed", "template", "packed_sw"])
+def test_ptxas_report(mangled, frame, regs, want):
+    """Registers and spills per kernel function, from nvcc -Xptxas -v,
+    for each kernel name the source has carried; a block before it must
+    not leak into its record."""
     text = (
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116k1_"
-        "packed_kernelILb1ELi2EEEvPKaPKiS3_PfS5_iiffff' for 'sm_90a'\n"
-        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 56 registers, used 0 barriers\n"
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116banded_"
-        "sw_kernelILb0ELi6ELb1EEEvPKaPKiS3_S3_PfS5_iifffff' for 'sm_90a'\n"
-        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
-        "ptxas info    : Used 63 registers, used 0 barriers\n")
-    assert cuda_sw.ptxas_report(text) == [
-        dict(function="k1_packed_kernel<1,2>", registers=56, stack_frame=0,
-             spill_stores=0, spill_loads=0),
-        dict(function="banded_sw_kernel<0,6,1>", registers=63, stack_frame=8,
-             spill_stores=4, spill_loads=8)]
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112other_"
+        "kernelILb0EEEvPKa' for 'sm_90a'\n"
+        "ptxas info    : Used 9 registers, used 0 barriers\n"
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+        f"{frame}\n"
+        f"ptxas info    : Used {regs} registers, used 0 barriers\n")
+    first, got = cuda_sw.ptxas_report(text)
+    assert first["function"] == "other_kernel<0>"
+    assert first["registers"] == 9 and first["spill_stores"] is None
+    assert got == want

@@ -1,9 +1,11 @@
 """The hand-written banded-DP kernels (csrc/banded_sw.cu) against their
 plain PyTorch version on the card: every variant (full statistics or
 score only, flat or quality-scaled mismatch) under all three scorings,
-equal field by field, and K1's packed kernel on repeat-rich windows full
-of ties, a ragged pair count, a 250 bp bucket, rows that are not 4-byte
-aligned and, above its row limit, the template kernel. Needs an NVIDIA
+equal field by field, and the path variants K1, K2 and K3 with qpen on
+repeat-rich windows full of ties, a ragged pair count, a 250 bp bucket,
+rows that are not 4-byte aligned, a qpen view at a 1-byte offset and,
+above the packed kernel's row limit, the template kernel (full
+statistics) or still the packed kernel (score only). Needs an NVIDIA
 card; skips without one. Run on the card with:
 python -m pytest --noconftest tests/test_torch_cuda_sw.py -q
 (the repo's conftest imports JAX, which the card's machine lacks)."""
@@ -21,7 +23,7 @@ from midas_tpu_torch.align.params import (GLOBAL_SCORING, LOCAL_SCORING,
                                           MARKER_SCORING)
 from midas_tpu_torch.align.pipeline import dispatch_banded_align
 
-from torch_cases import dp_case, qpen_case, tie_case
+from torch_cases import dp_case, long_bucket_case, qpen_case, tie_case
 
 SCORINGS = {"global": GLOBAL_SCORING, "marker": MARKER_SCORING,
             "local": LOCAL_SCORING}
@@ -123,12 +125,23 @@ def test_launches_counted_per_variant(card):
     assert dict(launches) == {"K1": 1, "K2": 2, "K3_qpen": 3, "K3": 1}
 
 
-def _assert_k1_equals_plain(card, scoring, q, qlens, ref):
+# the path variants, each under its paths' scorings
+PATH_CASES = [("K1", "global"), ("K1", "marker"), ("K2", "global"),
+              ("K2", "local"), ("K3_qpen", "global"), ("K3_qpen", "local")]
+
+
+def _assert_equals_plain(card, key, scoring, q, qlens, ref, qpen=None):
+    """One launch of variant `key` through the pipeline's dispatch, counted
+    under its key, equal to the plain version field by field."""
     t = [torch.from_numpy(x).to(card) for x in (q, qlens, ref)]
-    k0 = cuda_sw.LAUNCHES["K1"]
-    got = dispatch_banded_align(*t, scoring, 16)
-    assert cuda_sw.LAUNCHES["K1"] == k0 + 1
-    want = banded_align_plain(*t, scoring)
+    if qpen is not None and not isinstance(qpen, torch.Tensor):
+        qpen = torch.from_numpy(qpen).to(card)
+    score_only = key.startswith("K3")
+    k0 = cuda_sw.LAUNCHES[key]
+    got = dispatch_banded_align(*t, scoring, 16, score_only=score_only,
+                                qpen_pair=qpen)
+    assert cuda_sw.LAUNCHES[key] == k0 + 1
+    want = banded_align_plain(*t, scoring, qpen=qpen, score_only=score_only)
     torch.cuda.synchronize()
     assert set(got) == set(want)
     for k in want:
@@ -137,67 +150,94 @@ def _assert_k1_equals_plain(card, scoring, q, qlens, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(SCORINGS))
-def test_k1_ties_equal_plain(card, name):
+@pytest.mark.parametrize("key,name", PATH_CASES + [("K1", "local")])
+def test_path_ties_equal_plain(card, key, name):
     """Homopolymer and repeat windows: ties in the row argmax (within a
-    lane and across lanes) and in the deletion scan's keys."""
-    _assert_k1_equals_plain(card, SCORINGS[name],
-                            *tie_case(9, P=4096, L=128))
+    lane and across lanes) and in the deletion scan's keys; with qpen,
+    penalties and read Ns on top."""
+    q, qlens, ref = tie_case(9, P=4096, L=128)
+    qpen = None
+    if key != "K1":   # quality penalties and read Ns on top
+        qpen, q = qpen_case(10, q, SCORINGS[name])
+    _assert_equals_plain(card, key, SCORINGS[name], q, qlens, ref, qpen)
+
+
+def _case(key, seed, P, L, name):
+    """(q, qlens, ref, qpen) of _inputs for variant `key`."""
+    return _inputs(seed, P=P, L=L, scoring=SCORINGS[name],
+                   with_qpen=key != "K1")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["global", "marker"])
-def test_k1_ragged_pair_count(card, name):
+@pytest.mark.parametrize("key,name", PATH_CASES)
+def test_path_ragged_pair_count(card, key, name):
     """P = 4,099 is no multiple of the pairs a block or a warp holds."""
-    q, qlens, ref, _ = _inputs(13, P=4099, L=128, scoring=SCORINGS[name],
-                               with_qpen=False)
-    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+    _assert_equals_plain(card, key, SCORINGS[name],
+                         *_case(key, 13, 4099, 128, name))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["global", "marker"])
-def test_k1_250bp_bucket(card, name):
-    q, qlens, ref, _ = _inputs(17, P=1024, L=256, scoring=SCORINGS[name],
-                               with_qpen=False)
-    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+@pytest.mark.parametrize("key,name", PATH_CASES)
+def test_path_250bp_bucket(card, key, name):
+    _assert_equals_plain(card, key, SCORINGS[name],
+                         *_case(key, 17, 1024, 256, name))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["global", "marker"])
-def test_k1_unaligned_rows(card, name):
-    """L = 150: query rows are not 4-byte aligned, so the packed kernel
-    reads them a byte at a time."""
-    q, qlens, ref, _ = _inputs(23, P=1000, L=150, scoring=SCORINGS[name],
-                               with_qpen=False)
-    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+@pytest.mark.parametrize("key,name", PATH_CASES)
+def test_path_unaligned_rows(card, key, name):
+    """L = 150: query and qpen rows are not 4-byte aligned, so the packed
+    kernel reads them a byte at a time."""
+    _assert_equals_plain(card, key, SCORINGS[name],
+                         *_case(key, 23, 1000, 150, name))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["global", "marker"])
-def test_k1_above_packing_limit(card, name):
-    """Rows longer than the packed kernel takes go to the template
-    kernel, still counted as K1. Reads stay short so the plain version's
-    row loop is short; the bucket L is what routes the launch."""
-    L = cuda_sw.k1_layout()["packed_max_l"] + 16
-    q0, qlens, ref0, _ = _inputs(19, P=48, L=256, scoring=SCORINGS[name],
-                                 with_qpen=False)
-    rng = np.random.default_rng(20)
-    q = np.full((48, L), 4, dtype=np.int8)
-    q[:, :256] = q0
-    ref = rng.integers(0, 4, size=(48, L + 15)).astype(np.int8)
-    ref[:, :256 + 15] = ref0
-    _assert_k1_equals_plain(card, SCORINGS[name], q, qlens, ref)
+@pytest.mark.parametrize("key,name", [c for c in PATH_CASES
+                                      if c[0] != "K1"])
+def test_path_qpen_unaligned_view(card, key, name):
+    """qpen is a contiguous view at a 1-byte offset while the query rows
+    are aligned: the qpen load takes its own alignment test."""
+    q, qlens, ref, qpen = _case(key, 29, 1000, 128, name)
+    buf = torch.empty(qpen.size + 1, dtype=torch.int8, device=card)
+    view = buf[1:].view(qpen.shape)
+    view.copy_(torch.from_numpy(qpen))
+    assert view.is_contiguous() and view.data_ptr() % 4 == 1
+    _assert_equals_plain(card, key, SCORINGS[name], q, qlens, ref, view)
 
 
 @pytest.mark.cuda
-def test_k1_layout(card):
-    """The build holds the packed kernel in both modes at the layout the
-    wrapper reports, which covers the band; the packing limit of
-    csrc/banded_sw.cu keeps every field below 2^16."""
-    lay = cuda_sw.k1_layout()
-    assert lay["offsets_per_lane"] * lay["lanes_per_pair"] == cuda_sw.BAND
+@pytest.mark.parametrize("key,name", PATH_CASES)
+def test_path_above_packing_limit(card, key, name):
+    """Full-statistics rows longer than the packed kernel takes go to the
+    template kernel, still counted as K1 / K2; score-only rows of any
+    length stay on the packed kernel."""
+    L = cuda_sw.packed_layout()["packed_max_l"] + 16
+    q, qlens, ref, qpen = long_bucket_case(19, L, SCORINGS[name])
+    _assert_equals_plain(card, key, SCORINGS[name], q, qlens, ref,
+                         None if key == "K1" else qpen)
+
+
+@pytest.mark.cuda
+def test_packed_layout(card):
+    """The build holds every packed instantiation the layout names, in
+    both modes; each layout covers the band; the packing limit of
+    csrc/banded_sw.cu keeps every 16-bit field below 2^16."""
+    lay = cuda_sw.packed_layout()
+    for key in ("K1", "K2", "K3", "K3_qpen"):
+        v = lay[key]
+        assert v["offsets_per_lane"] * v["lanes_per_pair"] == cuda_sw.BAND
     assert 2 * lay["packed_max_l"] + 31 < 2 ** 16
     with open(os.path.join(build_dir(), "banded_sw.ptxas.txt")) as f:
         names = {r["function"] for r in cuda_sw.ptxas_report(f.read())}
-    opl = lay["offsets_per_lane"]
-    assert {f"k1_packed_kernel<1,{opl}>", f"k1_packed_kernel<0,{opl}>"} <= names
+    def opl(ns, qp):
+        return lay[cuda_sw.variant_key(ns, qp)]["offsets_per_lane"]
+
+    packed = {f"packed_sw_kernel<{local},{ns},{int(qp)},{opl(ns, qp)}>"
+              for ns in (6, 1) for qp in (False, True) for local in (1, 0)}
+    assert len(packed) == 8
+    assert packed <= names
+    # the template kernel keeps no score-only instantiation
+    assert {"banded_sw_kernel<1,1>", "banded_sw_kernel<0,1>",
+            "banded_sw_kernel<1,0>", "banded_sw_kernel<0,0>"} == {
+        n for n in names if n.startswith("banded_sw_kernel")}

@@ -1,6 +1,6 @@
-"""Guard: the port (every midas_tpu_torch module and chip_smoke.py)
-imports neither JAX nor anything of the JAX package, and importing it
-touches no card."""
+"""Guard: the port (every midas_tpu_torch module, chip_smoke.py and
+dp_batch_sweep.py) imports neither JAX nor anything of the JAX package,
+and importing it touches no card."""
 
 import json
 import os
@@ -18,6 +18,7 @@ names = ["midas_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import dp_batch_sweep
 import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

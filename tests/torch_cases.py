@@ -71,6 +71,27 @@ def tie_case(seed, P=128, L=64, D=16):
     return q, qlens, ref
 
 
+def long_bucket_case(seed, L, scoring, P=48, read_len=256, D=16):
+    """(query [P, L], qlens, ref [P, L+D-1], qpen [P, L]): dp_case reads
+    of at most read_len bp, with indels, reference Ns, an empty, a 1 bp
+    and a full-length read, and qpen_case penalties and read Ns, padded
+    into an L-row bucket (query with N, reference and qpen with random
+    tails). The bucket L, not the reads, routes a kernel launch, and
+    short reads keep the plain version's row loop short."""
+    q0, qlens, ref0 = dp_case(seed, P=P, L=read_len, D=D, indel=True)
+    rng = np.random.default_rng(seed + 1)
+    ref0[rng.random(ref0.shape) < 0.01] = 4
+    qlens[:3] = (0, 1, read_len)
+    qpen0, q0 = qpen_case(seed + 2, q0, scoring)
+    q = np.full((P, L), 4, dtype=np.int8)
+    q[:, :read_len] = q0
+    ref = rng.integers(0, 4, size=(P, L + D - 1)).astype(np.int8)
+    ref[:, :read_len + D - 1] = ref0
+    qpen = rng.integers(2, 7, size=(P, L)).astype(np.int8)
+    qpen[:, :read_len] = qpen0
+    return q, qlens, ref, qpen
+
+
 def qpen_case(seed, q, scoring, n_frac=0.02):
     """Quality penalties from random Phred scores (bowtie2 --mp table,
     as pipeline.quality_penalties) for reads q, and a copy of q with a
