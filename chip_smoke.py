@@ -56,14 +56,42 @@ Phases, each printing one JSON line:
              CPU, in -m local and -m global: summary.txt, every
              decompressed .genes.gz and the saved GenesState must be
              identical.
+11. snps_data    — builds the snps profiler on the card over the
+             representative genomes of the genes cell's 10 species (30 Mb,
+             the [4 x (G+1)] int32 counts ~0.48 GB) and reuses phase 7's
+             131,072 reads, which carry indels in 1% of reads.
+12. snps_kernels — the snps path's two DP calls on its first batch,
+             captured from snps_update under GLOBAL (the default) and
+             LOCAL scoring: pass 1 (K3 with qpen, 8,192 reads x 4
+             candidates) and pass 2 (K2), each equal to the plain version
+             field by field, and K3 equal to K2 on the fields both
+             compute. Kernel ms, plain ms and the bound.
+13. snps_main    — SnpsProfiler.run over the 131,072 reads at batch
+             8,192 with a checkpoint path, as run_snps calls it (the
+             counts are read back and the state saved at the end):
+             reads/s, K3 with qpen and K2 launches (each must equal the
+             number of batches), device-step ms of one snps_update with a
+             per-stage breakdown, busy share, peak device memory, gapped
+             rows, the host seconds of the checkpoint write and of
+             _finalize (the gapped-read oracle). The pileup is checked against
+             the simulator's truth (genome lengths, modal allele = the
+             reference at >= 99% of sites with depth >= 3, mapped reads
+             for every species), and one species' sites are written and
+             read back (depth = the sum of the four counts).
+14. snps_cpu     — `run_midas snps -n 2048` through the CLI on the
+             phase-3 database's first 20 species, on the card and on the
+             CPU, in -m global and -m local: summary.txt, every
+             decompressed .snps.gz and the saved state must be identical.
 
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
 genes launches), banded_sw_k2 (K2 on the packed kernel, timed at genes
-pass 2, genes launches) and banded_sw_template (the template kernel,
-timed on the above-the-limit check, launched on no path), and as the
-last line
+pass 2, genes launches), banded_sw_template (the template kernel,
+timed on the above-the-limit check, launched on no path),
+banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
+launches) and banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2,
+snps launches), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -93,6 +121,8 @@ GENES_DB = dict(n_species=12, genome_len=3_000_000, gene_len=900,
                 n_extra_genes=2000, related_pairs=3, divergence=0.03, seed=1)
 N_GENES_SPECIES, N_GENES_READS = 10, 131072
 N_GENES_CPU_SPECIES = 20
+# the snps cell: the representative genomes of the genes cell's species
+N_SNPS_CPU_SPECIES = 20
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -807,6 +837,307 @@ def phase_genes_cpu(comm, fq):
     return result
 
 
+def phase_snps_data(gcomm):
+    from midas_tpu_torch.db.layout import Database
+    from midas_tpu_torch.profile.snps import SnpsProfiler
+
+    t0 = time.time()
+    ids = [sp.species_id for sp in gcomm.species[:N_GENES_SPECIES]]
+    prof = SnpsProfiler(Database(gcomm.db_dir), ids, device="cuda")
+    t_prof = time.time() - t0
+    al = prof.aligner
+    idx_bytes = sum(t.numel() * t.element_size()
+                    for d in (al.index_arrays, al.pack_arrays)
+                    for t in d.values())
+    G = prof.pack.total_len
+    emit("snps_data", species=len(ids), contigs=prof.pack.num_seqs,
+         genome_mb=G / 1e6, index_on_card_mib=idx_bytes / 2**20,
+         counts_bytes=4 * (G + 1) * 4, reads=N_GENES_READS,
+         coverage=N_GENES_READS * 100 / G,
+         profiler_setup_seconds=round(t_prof, 1))
+    return prof
+
+
+def _snps_step(prof, scoring, b, arrays, state=None):
+    """One snps_update of batch b under `scoring` (returns its state)."""
+    import torch
+
+    from midas_tpu_torch.profile import device_steps as ds
+
+    al = prof.aligner
+    table = torch.from_numpy(ds.score_min_table(scoring,
+                                                al.max_read_len)).cuda()
+    if state is None:
+        state = ds.snps_init(prof.pack.total_len, len(prof.species_ids),
+                             2 * BATCH, al.max_read_len, "cuda")
+    contig_species = torch.from_numpy(
+        prof.contig_species.astype(np.int64)).cuda()
+    codes, quals, lengths, mean_qual = arrays
+    return ds.snps_update(
+        state, al.index_arrays, al.pack_arrays, contig_species, codes,
+        quals, lengths, mean_qual, b.n_reads, scoring=scoring,
+        seed_params=al.seed_params, max_len=al.max_read_len,
+        mapid=float(prof.mapid), readq=float(prof.readq),
+        min_mapq=int(prof.mapq), baseq=int(prof.baseq),
+        aln_cov=float(prof.aln_cov), smin_table=table)
+
+
+def phase_snps_kernels(prof, fq):
+    """K3 with qpen (pass 1) and K2 (pass 2) at the snps path's shapes,
+    GLOBAL (the path's default) and LOCAL."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
+
+    b, arrays = _first_batch(prof.aligner, fq,
+                             ("codes", "quals", "lengths", "mean_qual"))
+    layout = cuda_sw.packed_layout()
+    variants = []
+    for sname, sc in (("global", GLOBAL_SCORING), ("local", LOCAL_SCORING)):
+        calls = _captured_dp_calls(lambda: _snps_step(prof, sc, b, arrays))
+        if len(calls) != 2:
+            fail(f"snps_update ({sname}) launched the DP {len(calls)} "
+                 "times, not twice")
+        (p1, k1), (p2, k2) = calls
+        if not (k1["score_only"] and k1["qpen"] is not None
+                and not k2["score_only"] and k2["qpen"] is not None):
+            fail(f"snps_update ({sname}) did not run K3 with qpen, then K2")
+        v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
+                            layout, shape="snps pass 1")
+        v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
+                            layout, shape="snps pass 2")
+        full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
+        k3_out = v3.pop("_out")
+        v2.pop("_out")
+        for k in k3_out:
+            if not torch.equal(k3_out[k], full[k]):
+                fail(f"K3 and K2 differ in {k} ({sname}, snps pass 1)")
+        v3["equal_to_k2"] = True
+        for v in (v3, v2):
+            emit("snps_kernels", **v)
+            variants.append(v)
+    return variants
+
+
+def phase_snps_main(gcomm, prof, fq):
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.profile import checkpoint as ckpt
+
+    prof.run([fq], max_reads=BATCH, batch_size=BATCH)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_batches = -(-N_GENES_READS // BATCH)
+    finalize_s = []
+    real_finalize = prof._finalize
+
+    def timed_finalize(host):
+        t = time.perf_counter()
+        out = real_finalize(host)
+        finalize_s.append(time.perf_counter() - t)
+        return out
+
+    save_s = []
+    real_save = ckpt.save
+
+    def timed_save(*a, **k):
+        t = time.perf_counter()
+        real_save(*a, **k)
+        save_s.append(time.perf_counter() - t)
+
+    prof._finalize = timed_finalize
+    ckpt.save = timed_save
+    # run_snps's arguments: the state is saved at the end of the stream
+    state_path = os.path.join(WORK, "snps_main", "state.npz")
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = prof.run([fq], batch_size=BATCH, checkpoint_path=state_path)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del prof._finalize
+    ckpt.save = real_save
+    if len(save_s) != 1:
+        fail(f"snps_main saved its state {len(save_s)} times (want 1)")
+    launches = dict(cuda_sw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"K3_qpen": n_batches, "K2": n_batches}:
+        fail(f"snps path launched banded_sw {launches} for {n_batches} "
+             "batches (want K3 with qpen and K2, once each per batch)")
+
+    # the repo's own check (tests/test_genes_snps.py:54-103): the
+    # simulator's truth
+    counts = res["counts"]
+    pack = prof.pack
+    G = pack.total_len
+    depth = counts.sum(axis=0)
+    for si, sp in enumerate(gcomm.species[:N_GENES_SPECIES]):
+        got_len = int(pack.lengths[prof.contig_species == si].sum())
+        want_len = sum(len(c) for c in sp.contigs.values())
+        if got_len != want_len or res["mapped_reads"][si] <= 0:
+            fail(f"snps disagree with the truth for {sp.species_id}: "
+                 f"genome length {got_len} (want {want_len}), "
+                 f"mapped reads {res['mapped_reads'][si]}")
+    deep = depth >= 3
+    modal = counts[:, deep].argmax(axis=0)
+    agree = float((modal == pack.codes[:G][deep]).mean())
+    if deep.sum() < 1000 or agree < 0.99:
+        fail(f"modal allele equals the reference at {agree:.4f} of "
+             f"{int(deep.sum())} sites with depth >= 3")
+    # one species' sites file (the writer is host work outside reads/s)
+    t = time.perf_counter()
+    path = prof.write_sites(os.path.join(WORK, "snps_main"), 0, depth)
+    write_s = time.perf_counter() - t
+    sites = _check_sites_file(path, counts, pack, prof.contig_species, 0)
+    step_ms, stages = _snps_device_step(prof, fq)
+    emit("snps_main", reads=N_GENES_READS, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=N_GENES_READS / dt,
+         banded_sw_launches=launches, device_step_ms=step_ms,
+         device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
+         max_memory_allocated=peak, gapped_rows=int(res["n_gapped"]),
+         finalize_host_seconds=finalize_s[0],
+         checkpoint_save_seconds=save_s[0],
+         checkpoint_bytes=os.path.getsize(state_path),
+         aligned_reads=int(res["aligned_reads"].sum()),
+         mapped_reads=int(res["mapped_reads"].sum()),
+         sites_depth_ge3=int(deep.sum()), modal_equals_reference=agree,
+         covered_sites=int((depth > 0).sum()),
+         writer_sites=sites, writer_seconds=write_s,
+         writer_seconds_per_million_sites=write_s / (sites / 1e6))
+    return launches
+
+
+def _check_sites_file(path, counts, pack, contig_species, si):
+    """Read one species' .snps.gz back: one row per site of its contigs
+    in sorted id order, the reference allele, the counts of the pileup,
+    and depth = the sum of the four counts. Returns the number of rows."""
+    import gzip
+
+    from midas_tpu_torch.io.seqio import CODE_TO_BASE
+
+    cis = sorted((ci for ci in range(pack.num_seqs)
+                  if contig_species[ci] == si), key=lambda ci: pack.names[ci])
+    want_cols = np.concatenate(
+        [np.arange(pack.offsets[ci], pack.offsets[ci + 1]) for ci in cis])
+    with gzip.open(path, "rt") as f:
+        lines = f.read().split("\n")
+    if lines[0].split("\t")[0] != "ref_id" or lines[-1] != "" \
+            or len(lines) != len(want_cols) + 2:
+        fail(f"{path}: {len(lines) - 2} rows for {len(want_cols)} sites")
+    num = np.array([ln.split("\t", 3)[3].split("\t")
+                    for ln in lines[1:-1]], dtype=np.int64)
+    if not (num[:, 0] == num[:, 1:].sum(axis=1)).all():
+        fail(f"{path}: depth is not the sum of the four counts")
+    if not np.array_equal(num[:, 1:].T, counts[:, want_cols]):
+        fail(f"{path}: the counts differ from the pileup")
+    alleles = "".join(ln.split("\t", 3)[2] for ln in lines[1:-1])
+    if alleles.encode() != CODE_TO_BASE[pack.codes[want_cols]].tobytes():
+        fail(f"{path}: the reference alleles differ from the genome")
+    return len(want_cols)
+
+
+def _snps_device_step(prof, fq):
+    """Mean device ms of snps_update on one batch, and a per-stage
+    breakdown of the same work, by CUDA events. Stages without a call of
+    their own are differences of two timed calls."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align import pipeline as pl
+    from midas_tpu_torch.align.seed import find_candidates, gather_windows_packed
+    from midas_tpu_torch.profile import device_steps as ds
+
+    al = prof.aligner
+    sp, sc = al.seed_params, al.scoring
+    b, arrays = _first_batch(al, fq, ("codes", "quals", "lengths",
+                                      "mean_qual"))
+    codes, quals, qlens, mean_qual = arrays
+    state = _snps_step(prof, sc, b, arrays)
+    step_ms, _ = cuda_ms(lambda: _snps_step(prof, sc, b, arrays, state), 5)
+    (p1, k1), (p2, k2) = _captured_dp_calls(
+        lambda: _snps_step(prof, sc, b, arrays, state))
+    D, L = sp.band_width, codes.shape[1]
+    table = torch.from_numpy(ds.score_min_table(sc, al.max_read_len)).cuda()
+    r = {}
+    r["seed"], c = cuda_ms(lambda: find_candidates(
+        al.index_arrays, codes, qlens, sp, al.max_read_len), 5)
+    r["window_gather"], _ = cuda_ms(lambda: gather_windows_packed(
+        al.pack_arrays["words"], al.pack_arrays["nmask"],
+        al.pack_arrays["offsets"], c["diag"] - D // 2, L + D - 1,
+        center=c["diag"] + qlens[:, None] // 2), 5)
+    r["k3"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p1, **k1), 5)
+    pass1_ms, (out1, aux) = cuda_ms(lambda: pl.align_candidates_score(
+        al.index_arrays, al.pack_arrays, codes, qlens, sc, sp,
+        al.max_read_len, quals=quals), 5)
+    r["pair_prep_and_dedup"] = pass1_ms - r["seed"] - r["window_gather"] \
+        - r["k3"]
+    r["best_hit_mapq"], (_, best_col, _) = cuda_ms(
+        lambda: ds.best_hit_device(out1, qlens, sc, table), 5)
+    r["k2"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p2, **k2), 5)
+    pass2_ms, _ = cuda_ms(lambda: pl.align_chosen_full(
+        al.pack_arrays, aux, codes, qlens, best_col, sc, sp), 5)
+    r["pass2_gather"] = pass2_ms - r["k2"]
+    r["pileup_and_spill"] = step_ms - pass1_ms - r["best_hit_mapq"] \
+        - pass2_ms
+    return step_ms, r
+
+
+def _same_snps_outputs(a, b, what):
+    """Fail unless two snps output directories hold the same
+    summary.txt, species list, decompressed .snps.gz files and saved
+    state."""
+    import gzip
+
+    names = sorted(os.listdir(os.path.join(a, "snps/output")))
+    if names != sorted(os.listdir(os.path.join(b, "snps/output"))):
+        fail(f"{what}: different output files")
+    for f in ["snps/summary.txt", "snps/species.txt"] + [
+            os.path.join("snps/output", n) for n in names]:
+        op = gzip.open if f.endswith(".gz") else open
+        with op(os.path.join(a, f), "rb") as x, op(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"{what}: {f} differs")
+    keys, za = _same_state(os.path.join(a, "snps/temp/state.npz"),
+                           os.path.join(b, "snps/temp/state.npz"),
+                           f"{what}: SnpsState")
+    return keys, int(za["mapped_reads"][:-1].sum()), int(za["gap_n"])
+
+
+def phase_snps_cpu(comm, fq):
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    ids = ",".join(sp.species_id for sp in comm.species[:N_SNPS_CPU_SPECIES])
+    result = {}
+    for mode in ("global", "local"):
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(WORK, f"snps_cli_{mode}_{dev}")
+            cuda_sw.LAUNCHES.clear()
+            t0 = time.time()
+            run_midas(["snps", out, "-1", fq, "-d", comm.db_dir,
+                       "-n", str(N_CPU_READS), "--species_id", ids,
+                       "-m", mode, "--device", dev])
+            secs[dev] = round(time.time() - t0, 2)
+            outs[dev] = out
+            if dev == "cuda":
+                card_launches = dict(cuda_sw.LAUNCHES)
+            elif cuda_sw.LAUNCHES:
+                fail("the CPU run launched the kernel")
+        n_b = -(-N_CPU_READS // 8192)
+        if card_launches != {"K3_qpen": n_b, "K2": n_b}:
+            fail(f"snps -m {mode} on the card launched {card_launches}")
+        keys, mapped, gapped = _same_snps_outputs(
+            outs["cuda"], outs["cpu"], f"snps -m {mode}, card vs CPU")
+        result[mode] = dict(identical=True, state_fields=keys,
+                            mapped_reads=mapped, gapped_rows=gapped,
+                            card_launches=card_launches,
+                            card_seconds=secs["cuda"], cpu_seconds=secs["cpu"])
+    emit("snps_cpu", reads=N_CPU_READS, species=N_SNPS_CPU_SPECIES, **result)
+    return result
+
+
 def kernels_line(variants, by_path, smi_line):
     """The kernels line: one entry per kernel the paths run, timed at its
     path's shape, with its path's launches — banded_sw (K1, packed, at
@@ -818,7 +1149,10 @@ def kernels_line(variants, by_path, smi_line):
         path = ("species" if v["shape"] == "main path batch" else
                 "genes" if v["shape"].startswith("genes") and
                 v["scoring"] == "local" else
-                "genes_cli_global" if v["shape"].startswith("genes") else None)
+                "genes_cli_global" if v["shape"].startswith("genes") else
+                "snps" if v["shape"].startswith("snps") and
+                v["scoring"] == "global" else
+                "snps_cli_local" if v["shape"].startswith("snps") else None)
         v["path"] = path
         v["launches"] = by_path[path].get(v["key"], 0) if path else 0
 
@@ -826,9 +1160,9 @@ def kernels_line(variants, by_path, smi_line):
         return [v for v in variants if v["function"] == function
                 and variant in (None, v["variant"])]
 
-    def entry(name, group, shape, launches):
+    def entry(name, group, shape, launches, scorings=("marker", "local")):
         timed = next(v for v in group if v["shape"] == shape
-                     and v["scoring"] in ("marker", "local"))
+                     and v["scoring"] in scorings)
         return dict(
             name=name, route="cuda", source="midas_tpu_torch/csrc/banded_sw.cu",
             replaces="midas_tpu/align/pallas_sw.py:328", launches=launches,
@@ -848,6 +1182,11 @@ def kernels_line(variants, by_path, smi_line):
               by_path["genes"].get("K2", 0)),
         entry("banded_sw_template", group("template"),
               "above the packing limit", 0),
+        entry("banded_sw_k3_qpen_glocal", group("packed", "K3"),
+              "snps pass 1", by_path["snps"].get("K3_qpen", 0),
+              scorings=("global",)),
+        entry("banded_sw_k2_glocal", group("packed", "K2"), "snps pass 2",
+              by_path["snps"].get("K2", 0), scorings=("global",)),
     ]}
 
 
@@ -869,8 +1208,18 @@ def main():
     variants += phase_genes_kernels(gprof, gfq)
     genes_launches = phase_genes_main(gcomm, gprof, gfq)
     genes_cli = phase_genes_cpu(comm, fq)
+    del gprof
+    torch.cuda.empty_cache()
+    sprof = phase_snps_data(gcomm)
+    variants += phase_snps_kernels(sprof, gfq)
+    snps_launches = phase_snps_main(gcomm, sprof, gfq)
+    del sprof
+    torch.cuda.empty_cache()
+    snps_cli = phase_snps_cpu(comm, fq)
     by_path = {"species": species_launches, "genes": genes_launches,
-               "genes_cli_global": genes_cli["global"]["card_launches"]}
+               "genes_cli_global": genes_cli["global"]["card_launches"],
+               "snps": snps_launches,
+               "snps_cli_local": snps_cli["local"]["card_launches"]}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,16 +1,17 @@
 """run_midas — per-sample profiling CLI of the PyTorch/CUDA port.
 
-The `species` and `genes` subcommands, with the argparse surface of
-midas_tpu's run_midas (itself flag-compatible with the reference
-scripts/run_midas.py :86-143, :204-289) plus --device. Run as
+The `species`, `genes` and `snps` subcommands, with the argparse surface
+of midas_tpu's run_midas (itself flag-compatible with the reference
+scripts/run_midas.py :86-143, :204-289, :338-430) plus --device. Run as
 
     python -m midas_tpu_torch.cli.run_midas species <out> -1 <fq> -d <db>
     python -m midas_tpu_torch.cli.run_midas genes <out> -1 <fq> -d <db>
+    python -m midas_tpu_torch.cli.run_midas snps <out> -1 <fq> -d <db>
 
 It runs on the card (--device cuda, the default) and raises without
 one; --device cpu runs the plain PyTorch versions of the kernels.
-Not yet ported: the snps subcommand, --m8, paired-end genes reads (-2,
---interleaved), multi-process runs.
+Not yet ported: --m8 (ignored with --remove_temp, as midas_tpu does),
+paired-end reads (-2, --interleaved), multi-process runs.
 
 Differences from the reference, by design:
 - no --threads-style process parallelism: batches run data-parallel on
@@ -44,7 +45,8 @@ def species_parser(subs):
                    help="Remove temporary files, including BLAST-like output")
     p.add_argument("--m8", default=False, action="store_true",
                    help="Write BLAST outfmt-6 alignments to species/temp/alignments.m8 "
-                        "(not yet ported: raises)")
+                        "(not yet ported: raises, unless --remove_temp is "
+                        "given, which makes it moot)")
     p.add_argument("--word_size", type=int, metavar="INT", default=28,
                    help="Accepted for compatibility (seeding uses the k-mer index)")
     p.add_argument("--mapid", type=float, metavar="FLOAT",
@@ -131,14 +133,44 @@ def genes_parser(subs):
     return p
 
 
+def snps_parser(subs):
+    p = subs.add_parser("snps", help="Identify SNPs from representative genomes")
+    _add_shared_align_args(p, mode_default="global")
+    p.add_argument("--pileup", action="store_true", dest="call", default=False,
+                   help="Count alleles across genome")
+    s = p.add_argument_group("Pileup options (if using --pileup)")
+    s.add_argument("--mapid", type=float, metavar="FLOAT", default=94.0,
+                   help="Discard reads with alignment identity < MAPID (94.0)")
+    s.add_argument("--mapq", type=int, metavar="INT", default=20,
+                   help="Discard reads with mapping quality < MAPQ (20)")
+    s.add_argument("--baseq", type=int, metavar="INT", default=30,
+                   help="Discard bases with quality < BASEQ (30)")
+    s.add_argument("--readq", type=int, metavar="INT", default=20,
+                   help="Discard reads with mean quality < READQ (20)")
+    s.add_argument("--aln_cov", type=float, metavar="FLOAT", default=0.75,
+                   help="Discard reads with alignment coverage < ALN_COV (0.75)")
+    s.add_argument("--trim", metavar="INT", type=int, default=0,
+                   help="Trim N base-pairs from 3'/right end of read")
+    # accepted for compatibility: the reference parses these but never
+    # passes them to pysam (scripts/run_midas.py:422-427 — vestigial)
+    s.add_argument("--discard", default=False, action="store_true",
+                   help="Accepted for compatibility (vestigial in the reference)")
+    s.add_argument("--baq", default=False, action="store_true",
+                   help="Accepted for compatibility (vestigial in the reference)")
+    s.add_argument("--adjust_mq", default=False, action="store_true",
+                   help="Accepted for compatibility (vestigial in the reference)")
+    return p
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="run_midas",
-        description="midas_tpu_torch: species and gene profiling per sample on an NVIDIA card",
+        description="midas_tpu_torch: species, gene and SNP profiling per sample on an NVIDIA card",
     )
     subs = parser.add_subparsers(dest="program", required=True)
     species_parser(subs)
     genes_parser(subs)
+    snps_parser(subs)
     return parser
 
 
@@ -211,7 +243,53 @@ Additional information for each species can be found in the reference database:
  {db}/pan_genomes
 """
 
-README = {"species": SPECIES_README, "genes": GENES_README}
+SNPS_README = """
+Description of output files and file formats from 'run_midas snps'
+
+Output files
+############
+output
+  directory of per-species output files
+  files are tab-delimited, gzip-compressed, with header
+  naming convention of each file is: {{SPECIES_ID}}.snps.gz
+species.txt
+  list of species_ids included in local database
+summary.txt
+  tab-delimited with header
+  summarizes alignment results per-species
+log.txt
+  log file containing parameters used
+temp
+  directory of intermediate files
+  run with `--remove_temp` to remove these files
+
+Output formats
+############
+output/{{SPECIES_ID}}.snps.gz
+  ref_id: id of reference scaffold/contig/genome
+  ref_pos: position in ref_id (1-indexed)
+  ref_allele: reference nucleotide
+  depth: number of mapped reads
+  count_a: count of A allele
+  count_c: count of C allele
+  count_g: count of G allele
+  count_t: count of T allele
+
+summary.txt
+  species_id: species id
+  genome_length: number of base pairs in representative genome
+  covered_bases: number of reference sites with at least 1 mapped read
+  fraction_covered: proportion of reference sites with at least 1 mapped read
+  mean_coverage: average read-depth across reference sites with at least 1 mapped read
+  aligned_reads: number of aligned reads BEFORE quality filtering
+  mapped_reads: number of aligned reads AFTER quality filtering
+
+Additional information for each species can be found in the reference database:
+ {db}/rep_genomes
+"""
+
+README = {"species": SPECIES_README, "genes": GENES_README,
+          "snps": SNPS_README}
 
 
 def _check_stage_intermediates(args: dict, program: str) -> None:
@@ -250,9 +328,10 @@ def main(argv=None):
     check_database(args.get("db"))
     if isinstance(args.get("species_id"), str):
         args["species_id"] = args["species_id"].split(",")
-    if program == "genes":
+    if program in ("genes", "snps"):
         # default = all pipeline stages, like the reference (:72-84)
-        stage_keys = ["build_db", "align", "cov"]
+        stage_keys = ["build_db", "align",
+                      "cov" if program == "genes" else "call"]
         if not any(args.get(k) for k in stage_keys):
             for k in stage_keys:
                 args[k] = True
@@ -264,7 +343,7 @@ def main(argv=None):
         _check_stage_intermediates(args, program)
     outdir = args["outdir"]
     subs = [program, f"{program}/temp"] + (
-        [f"{program}/output"] if program == "genes" else [])
+        [f"{program}/output"] if program in ("genes", "snps") else [])
     for sub in subs:
         os.makedirs(os.path.join(outdir, sub), exist_ok=True)
     with open(os.path.join(outdir, program, "readme.txt"), "w") as f:
@@ -277,8 +356,10 @@ def main(argv=None):
         args["log"] = log
         if program == "species":
             from midas_tpu_torch.profile.species import run_species as run
-        else:
+        elif program == "genes":
             from midas_tpu_torch.profile.genes import run_genes as run
+        else:
+            from midas_tpu_torch.profile.snps import run_snps as run
 
         try:
             if args.get("profile"):

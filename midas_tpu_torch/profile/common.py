@@ -1,7 +1,7 @@
-"""Shared pieces of the genes/snps per-sample pipelines: species
-selection bookkeeping (genes.py:32-48, snps.py:38-53) and the choice of
-read-batch stream. Single process; mate-paired streams are not yet
-ported."""
+"""Shared pieces of the per-sample pipelines: species selection
+bookkeeping (genes.py:32-48, snps.py:38-53), the choice of read-batch
+stream and the guard against multi-process launches. Single process;
+mate-paired streams are not yet ported."""
 
 from __future__ import annotations
 
@@ -13,6 +13,26 @@ from midas_tpu_torch.profile.species import select_species
 
 PAIRED_NOT_PORTED = ("paired-end reads (-2 / --interleaved) are not yet "
                      "ported to midas_tpu_torch")
+
+
+def _multi_process() -> bool:
+    """True under a launcher of several processes (torch.distributed
+    initialized with more than one rank, or WORLD_SIZE > 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size() > 1
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
+def require_single_process(program: str) -> None:
+    """Raise under a multi-process launch: every rank would profile the
+    whole input and write the same files (the multi-process paths are
+    not yet ported)."""
+    if _multi_process():
+        raise NotImplementedError(
+            f"multi-process {program} runs are not yet ported to "
+            "midas_tpu_torch")
 
 
 def resolve_species_list(args: Dict, db: Database, subdir: str) -> List[str]:

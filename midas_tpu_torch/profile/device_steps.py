@@ -6,7 +6,9 @@ PLACE (the JAX package donates its state to the jit for the same
 effect). Reads that need host math — ambiguous marker hits, which go
 through the reference's RNG assignment (midas/run/species.py:104-119)
 — are spilled into a fixed-capacity device staging buffer that the
-caller drains (profile/species.py).
+caller drains (profile/species.py, profile/snps.py). Gapped reads of
+the snps pileup, whose column map needs a traceback, are spilled the
+same way and go through the host oracle once, after the stream.
 
 Filter semantics are those of midas_tpu/profile/device_steps.py, with
 two deliberate changes for exactness: uniq_bp accumulates in int64 (the
@@ -14,8 +16,8 @@ JAX package sums in float32, exact only below 2^24 bp per species), and
 the stream rank amb_ord is int64 (int32 overflows past 2^31 reads).
 Results are equal wherever the JAX package is exact.
 
-The species and the single-end genes steps are ported; the snps step
-and mate pairing are not yet.
+The species step and the single-end genes and snps steps are ported;
+mate pairing is not yet.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from midas_tpu_torch.align.params import ScoringParams
 from midas_tpu_torch.align.pipeline import (_align_batch_stages,
                                             align_candidates_score,
                                             align_chosen_full)
-from midas_tpu_torch.align.seed import SeedParams
+from midas_tpu_torch.align.seed import (SeedParams, revcomp_batch,
+                                        reverse_batch)
 
 NEG_INF = -1e30
 SPILL_FIELDS = ("amb_sp", "amb_bp", "amb_seq", "amb_ord")
@@ -307,11 +310,14 @@ def species_update(
 
 def sliced_spill_host(bufs: Dict[str, torch.Tensor], n: torch.Tensor,
                       cap: int) -> Tuple[Dict[str, np.ndarray], int]:
-    """Read spill buffers back with only the occupied rows.
+    """Read spill buffers back with only the occupied rows, as copies
+    (on the CPU a plain .numpy() would alias the buffers, which the next
+    batches overwrite after a drain).
     Returns ({name: [min(n, cap), ...] host rows}, true_n)."""
     true_n = int(n)
     take = min(true_n, cap)
-    return {k: v[:take].cpu().numpy() for k, v in bufs.items()}, true_n
+    return {k: v[:take].to("cpu", copy=True).numpy()
+            for k, v in bufs.items()}, true_n
 
 
 def species_state_host(state: SpeciesState) -> Dict[str, np.ndarray]:
@@ -366,6 +372,27 @@ def genes_init(num_genes: int, device) -> GenesState:
                                     device=device) for _ in GENES_FIELDS))
 
 
+def _two_pass_keep(index_arrays, pack_arrays, codes, quals, qlens,
+                   mean_qual, n_reads, scoring, seed_params, max_len, mapid,
+                   readq, min_mapq, aln_cov, smin_table):
+    """The two-pass alignment of genes_update and snps_update: the
+    score-only DP over every candidate (pass 1, K3 with qpen), the best
+    hit and its MAPQ, then the full-statistics DP over each read's chosen
+    candidate (pass 2, K2). Returns (out1, full, best_col, aligned,
+    keep); aligned and keep exclude padding rows."""
+    out1, aux = align_candidates_score(index_arrays, pack_arrays, codes,
+                                       qlens, scoring, seed_params, max_len,
+                                       quals=quals)
+    aligned, best_col, mapq = best_hit_device(out1, qlens, scoring,
+                                              smin_table)
+    full = align_chosen_full(pack_arrays, aux, codes, qlens, best_col,
+                             scoring, seed_params)
+    aligned &= torch.arange(codes.shape[0], device=codes.device) < n_reads
+    keep = aligned & keep_mask_chosen(full, qlens, mean_qual, mapq,
+                                      mapid, readq, min_mapq, aln_cov)
+    return out1, full, best_col, aligned, keep
+
+
 def genes_update(
     state: GenesState,
     index_arrays: Dict[str, torch.Tensor],
@@ -398,22 +425,14 @@ def genes_update(
         raise NotImplementedError(
             "paired-end genes (mate pairing) is not yet ported to "
             "midas_tpu_torch")
-    out1, aux = align_candidates_score(index_arrays, pack_arrays, codes,
-                                       qlens, scoring, seed_params, max_len,
-                                       quals=quals)
-    B = out1["score"].shape[0]
+    out1, full, best_col, aligned, keep = _two_pass_keep(
+        index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
+        scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
+        smin_table)
     G = num_genes
-    real = torch.arange(B, device=codes.device) < n_reads
-    aligned, best_col, mapq = best_hit_device(out1, qlens, scoring,
-                                              smin_table)
-    full = align_chosen_full(pack_arrays, aux, codes, qlens, best_col,
-                             scoring, seed_params)
-    aligned &= real
     g = _pick(out1["seq_idx"], best_col)
-    ones = torch.ones(B, dtype=torch.int32, device=codes.device)
+    ones = torch.ones(codes.shape[0], dtype=torch.int32, device=codes.device)
     state.aligned_reads.index_add_(0, torch.where(aligned, g, G), ones)
-    keep = aligned & keep_mask_chosen(full, qlens, mean_qual, mapq,
-                                      mapid, readq, min_mapq, aln_cov)
     gk = torch.where(keep, g, G)
     state.mapped_reads.index_add_(0, gk, ones)
     alen = full["qend"] - full["qstart"]
@@ -428,3 +447,159 @@ def genes_state_host(state: GenesState) -> Dict[str, np.ndarray]:
 def genes_state_restore(h: Dict[str, np.ndarray], device) -> GenesState:
     return GenesState(*(torch.from_numpy(
         np.asarray(h[k]).astype(np.int32)).to(device) for k in GENES_FIELDS))
+
+
+# ---------------------------------------------------------------------------
+# SNP pileup profiling
+# ---------------------------------------------------------------------------
+
+GAP_FIELDS = ("gap_codes", "gap_quals", "gap_meta")
+
+
+@dataclasses.dataclass
+class SnpsState:
+    counts: torch.Tensor         # [4 * (G+1)] int32 flat pileup counts
+    #                              (base-major; column G is the dump slot)
+    aligned_reads: torch.Tensor  # [S+1] int32 per species (slot S = dump)
+    mapped_reads: torch.Tensor   # [S+1] int32
+    gap_codes: torch.Tensor      # [CAP+1, L] int8 kept gapped reads, as
+    #                              aligned (strand-adjusted)
+    gap_quals: torch.Tensor      # [CAP+1, L] int8
+    gap_meta: torch.Tensor       # [CAP+1, 4] int32: seq_idx, tstart, tend,
+    #                              qlen
+    gap_n: torch.Tensor          # 0-d int64 true count (may exceed CAP)
+
+
+def snps_init(total_len: int, n_species: int, gap_cap: int, max_len: int,
+              device) -> SnpsState:
+    def z(shape, dtype, fill=0):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return SnpsState(
+        counts=z((4 * (total_len + 1),), torch.int32),
+        aligned_reads=z((n_species + 1,), torch.int32),
+        mapped_reads=z((n_species + 1,), torch.int32),
+        gap_codes=z((gap_cap + 1, max_len), torch.int8, 4),
+        gap_quals=z((gap_cap + 1, max_len), torch.int8),
+        gap_meta=z((gap_cap + 1, 4), torch.int32),
+        gap_n=z((), torch.int64),
+    )
+
+
+def snps_state_host(state: SnpsState) -> Dict[str, np.ndarray]:
+    """Host snapshot: the dense counts with the dump slot zeroed (as
+    midas_tpu's readback gives them), the gap buffers sliced to their
+    occupied rows, the per-species counters; gap_n is the TRUE count."""
+    G = state.counts.shape[0] // 4 - 1
+    cap = state.gap_codes.shape[0] - 1
+    out, gap_n = sliced_spill_host(
+        {k: getattr(state, k) for k in GAP_FIELDS}, state.gap_n, cap)
+    for k in ("aligned_reads", "mapped_reads"):
+        out[k] = getattr(state, k).cpu().numpy()
+    out["gap_n"] = np.int64(gap_n)
+    out["counts"] = state.counts.to("cpu", copy=True).numpy()
+    out["counts"][G] = 0
+    return out
+
+
+def snps_state_restore(h: Dict[str, np.ndarray], gap_cap: int,
+                       device) -> SnpsState:
+    """Rebuild device state from a snps_state_host snapshot, whose gap
+    rows must fit the capacity."""
+    total_len = h["counts"].shape[0] // 4 - 1
+    n_species = h["aligned_reads"].shape[0] - 1
+    rows = h["gap_codes"].shape[0]
+    if rows > gap_cap:
+        raise ValueError(f"{rows} gap rows exceed the capacity {gap_cap}")
+    st = snps_init(total_len, n_species, gap_cap, h["gap_codes"].shape[1],
+                   device)
+    for k in ("counts", "aligned_reads", "mapped_reads"):
+        getattr(st, k).copy_(torch.from_numpy(
+            np.asarray(h[k]).astype(np.int32)))
+    for k in GAP_FIELDS:
+        buf = getattr(st, k)
+        buf[:rows] = torch.from_numpy(np.asarray(h[k])).to(device,
+                                                          buf.dtype)
+    st.gap_n.fill_(int(h["gap_n"]))
+    return st
+
+
+def snps_update(
+    state: SnpsState,
+    index_arrays: Dict[str, torch.Tensor],
+    pack_arrays: Dict[str, torch.Tensor],
+    contig_species: torch.Tensor,  # [num_seqs] int64
+    codes: torch.Tensor,
+    quals: torch.Tensor,           # [B, L] int8
+    qlens: torch.Tensor,
+    mean_qual: torch.Tensor,       # [B] float32
+    n_reads: int,                  # real rows in this batch
+    scoring: ScoringParams,
+    seed_params: SeedParams,
+    max_len: int,
+    mapid: float,
+    readq: float,
+    min_mapq: int,
+    baseq: int,
+    aln_cov: float,
+    smin_table: torch.Tensor,      # score_min_table(scoring, max_len)
+    paired: bool = False,
+) -> SnpsState:
+    """One pileup batch on the state's device, updating `state` in place
+    (reference semantics: snps.py:141-216). Gapless kept reads add their
+    bases straight into the counts (the closed-form column map); gapped
+    kept reads are appended, strand-adjusted, to the gap buffers for the
+    exact host traceback. No host sync: gap_n stays on the device.
+
+    Two-pass alignment, as genes_update: the score-only DP over every
+    candidate (pass 1, K3 with qpen), then the full-statistics DP over
+    each read's chosen candidate (pass 2, K2). Every sum is an integer
+    scatter-add, exact in any order."""
+    if paired:
+        raise NotImplementedError(
+            "paired-end snps (mate pairing) is not yet ported to "
+            "midas_tpu_torch")
+    out1, full, best_col, aligned, keep = _two_pass_keep(
+        index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
+        scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
+        smin_table)
+    B, L = codes.shape
+    dev = codes.device
+    # the genome length from the counts buffer, not the pack: the pack
+    # carries a guard pad beyond its total length (refpack.py)
+    G = state.counts.shape[0] // 4 - 1
+    S = state.aligned_reads.shape[0] - 1
+    ci = _pick(out1["seq_idx"], best_col)
+    sp = contig_species[ci]
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    state.aligned_reads.index_add_(0, torch.where(aligned, sp, S), ones)
+    state.mapped_reads.index_add_(0, torch.where(keep, sp, S), ones)
+
+    # the read as aligned: reverse-complemented codes and reversed
+    # qualities for reads on the reverse strand
+    is_rc = (_pick(out1["strand"], best_col) == 1)[:, None]
+    qsel = torch.where(is_rc, revcomp_batch(codes, qlens), codes)
+    qqsel = torch.where(is_rc, reverse_batch(quals, qlens, fill=0), quals)
+
+    gapless = full["gap_cols"] == 0
+    qs, ts = full["qstart"][:, None], full["tstart"][:, None]
+    j = torch.arange(L, device=dev)[None, :]
+    tpos = pack_arrays["offsets"][ci][:, None] + ts + (j - qs)
+    base = qsel.to(torch.int64)
+    ok = ((keep & gapless)[:, None] & (j >= qs)
+          & (j < full["qend"][:, None]) & (qqsel.to(torch.int32) >= baseq)
+          & (base < 4) & (tpos >= 0) & (tpos < G))
+    flat = torch.where(ok, base * (G + 1) + tpos, G)
+    state.counts.index_add_(0, flat.reshape(-1),
+                            torch.ones(B * L, dtype=torch.int32, device=dev))
+
+    # kept gapped reads, in stream order
+    is_gap = keep & ~gapless
+    meta = torch.stack([ci.to(torch.int32), full["tstart"].to(torch.int32),
+                        full["tend"].to(torch.int32), qlens.to(torch.int32)],
+                       dim=1)
+    n = state.gap_n
+    _append_rows(state.gap_codes, n, qsel, is_gap)
+    _append_rows(state.gap_quals, n, qqsel, is_gap)
+    state.gap_n = _append_rows(state.gap_meta, n, meta, is_gap)
+    return state

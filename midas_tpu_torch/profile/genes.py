@@ -32,6 +32,7 @@ from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.db.refpack import pack_from_fasta
 from midas_tpu_torch.io.seqio import iopen, parse_file
 from midas_tpu_torch.profile.common import (PAIRED_NOT_PORTED,
+                                            require_single_process,
                                             resolve_species_list,
                                             select_batches)
 
@@ -277,16 +278,6 @@ def _marker_map_path(db: Database):
     raise FileNotFoundError("phyeco.map")
 
 
-def _multi_process() -> bool:
-    """True under a launcher of several processes (torch.distributed
-    initialized with more than one rank, or WORLD_SIZE > 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size() > 1
-    return int(os.environ.get("WORLD_SIZE", "1")) > 1
-
-
 def run_genes(args: Dict) -> Optional[GenesProfiler]:
     """The genes pipeline end to end, with the reference output layout
     and per-stage timing/memory prints (genes.py:252-291). args["device"] picks the
@@ -296,9 +287,7 @@ def run_genes(args: Dict) -> Optional[GenesProfiler]:
 
     if args.get("m2") or args.get("interleaved"):
         raise NotImplementedError(PAIRED_NOT_PORTED)
-    if _multi_process():
-        raise NotImplementedError(
-            "multi-process genes runs are not yet ported to midas_tpu_torch")
+    require_single_process("genes")
     device = resolve_device(args.get("device") or "cuda")
     outdir = args["outdir"]
     log = args.get("log")

@@ -411,11 +411,15 @@ def run_species(args: Dict) -> Dict:
     """The species pipeline end to end, with the reference's output layout
     (species.py:229-269): <outdir>/species/{species_profile.txt,
     temp/read_count.txt, temp/state.npz}. args["device"] picks the
-    device (default "cuda"). Single process; --m8 is not yet ported."""
+    device (default "cuda"). Single process; --m8 is not yet ported,
+    and is ignored with --remove_temp, as midas_tpu ignores it (the m8
+    file would live under temp/, which that flag deletes)."""
     from midas_tpu_torch.io.batch import detect_max_read_len
+    from midas_tpu_torch.profile.common import require_single_process
     from midas_tpu_torch.utils import stage_timer
 
-    if args.get("m8"):
+    require_single_process("species")
+    if args.get("m8") and not args.get("remove_temp"):
         raise NotImplementedError(
             "--m8 (BLAST outfmt-6 output) is not yet ported to "
             "midas_tpu_torch")

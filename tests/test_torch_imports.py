@@ -35,8 +35,9 @@ def test_port_imports_no_jax_and_no_midas_tpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    for m in ("profile.species", "profile.genes", "profile.common",
-              "profile.device_steps", "align.pipeline", "align.cuda_sw"):
+    for m in ("profile.species", "profile.genes", "profile.snps",
+              "profile.common", "profile.device_steps", "align.pipeline",
+              "align.cuda_sw", "align.oracle"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
     assert "midas_tpu_torch.cli.run_midas" in got["modules"]
     assert got["bad"] == []

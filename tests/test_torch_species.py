@@ -159,3 +159,15 @@ def test_evalue_gate_integer_equals_f32(sim_community):
     thr_f64 = J_MARKER.evalue_score_threshold(qlen.astype(np.float64), dblen)
     np.testing.assert_array_equal(scores >= thr_f64[:, None],
                                   scores >= min_score[:, None])
+
+
+def test_forced_drains_keep_the_drained_rows(sim_community, sim_reads):
+    """Draining the ambiguous spill every other batch gives the same rows,
+    in the same order, as one drain at the end: on the CPU the drained
+    rows are copies, not views of the buffer that later batches refill."""
+    prof = TProfiler(TDatabase(sim_community.db_dir), device="cpu")
+    one = prof._run_device([sim_reads[0]], None, None, batch_size=64)
+    many = prof._run_device([sim_reads[0]], None, None, batch_size=64,
+                            amb_cap=1)
+    assert len(one[2]) > 3
+    assert repr(many) == repr(one)
