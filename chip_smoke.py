@@ -83,6 +83,38 @@ Phases, each printing one JSON line:
              CPU, in -m global and -m local: summary.txt, every
              decompressed .snps.gz and the saved state must be identical.
 
+The paired phases (run between the phases above, while phase 7's genes
+profiler and phase 11's snps profiler are on the card):
+
+15. paired_data  — 65,536 mate pairs (131,072 x 100 bp reads, fr,
+             fragments of 220-420 bp, maxins 500) from the genes cell's
+             10 species, as -1 / -2 files; no new database.
+16. paired_genes_main — GenesProfiler.run([r1, r2], paired=True) at
+             batch 8,192 (4,096 pairs), after phase 9 on the same
+             profiler: reads/s and pairs/s, K3 with qpen and K2 launches
+             (each must equal the number of batches), device-step ms of
+             one paired genes_update with its stages (pair_pick, the
+             mate-pair best hit, in place of best_hit_mapq), busy share,
+             peak memory, the loader's host seconds against the
+             single-end loader over the same reads, and the counts of an
+             unpaired run of the same files. Checked: genes_main's
+             truth, the first batch's concordant share against a bound
+             measured on the CPU (PAIRED_MIN_CONCORDANT), that the
+             mate-pair pick changes some reads' MAPQ or candidate there,
+             and K3 with qpen / K2 on that batch's DP inputs equal to
+             the plain version (paired_genes_kernels).
+17. paired_snps_main — SnpsProfiler.run([r1, r2], paired=True) with a
+             checkpoint path, after phase 13 on the same profiler:
+             snps_main's figures and checks, with pair_pick, the
+             first batch's concordant share against its bound and K3 /
+             K2 on its DP inputs (paired_snps_kernels).
+18. paired_cli   — 1,024 mate pairs from the phase-3 community's first
+             20 species: `run_midas genes -m local` and `run_midas snps
+             -m global` with -1 / -2 on the card and on the CPU, and with
+             --interleaved over the same pairs on the card; every output
+             file and the saved state must be identical, and the CPU
+             runs launch nothing.
+
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
@@ -91,7 +123,8 @@ pass 2, genes launches), banded_sw_template (the template kernel,
 timed on the above-the-limit check, launched on no path),
 banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
 launches) and banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2,
-snps launches), and as the last line
+snps launches), each with every path's launches (the paired paths'
+among them), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -123,6 +156,22 @@ N_GENES_SPECIES, N_GENES_READS = 10, 131072
 N_GENES_CPU_SPECIES = 20
 # the snps cell: the representative genomes of the genes cell's species
 N_SNPS_CPU_SPECIES = 20
+# the paired cells: mate pairs of 100 bp reads in fr orientation from the
+# genes cell's 10 species, as bowtie2 -1/-2 takes them
+N_PAIRS, N_CLI_PAIRS = 65536, 1024
+PAIRED_SIM = dict(read_len=100, frag_range=(220, 420), error_rate=0.005,
+                  indel_rate=0.01, seed=9)
+# The least share of a paired batch's real pairs that must have a
+# concordant candidate pair (device_steps.concordant_pairs' has_pair).
+# Measured on the CPU before the first card run, at 1,024 pairs of
+# PAIRED_SIM from the genes cell's database cut to 300 kb genomes (gene
+# length kept), by tests/test_torch_paired.py::test_concordant_share_bound:
+# genes (LOCAL, pangenome: a pair spanning two genes is not concordant)
+# 0.7217, snps (GLOBAL, representative genomes) 1.0. The bounds sit about
+# four standard deviations of a 1,024-pair sample below; never lowered.
+# The same run moved the MAPQ of 124 of the 2,048 genes reads and of 1
+# snps read: only the genes cell is required to show moved picks.
+PAIRED_MIN_CONCORDANT = {"genes": 0.66, "snps": 0.97}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -560,12 +609,9 @@ def phase_genes_data():
     t0 = time.time()
     comm = simulate_db(os.path.join(WORK, "genes_db"), **GENES_DB)
     fq = os.path.join(WORK, "genes_reads.fq.gz")
-    n_sp = len(comm.species)
-    abund = ([1.0 / N_GENES_SPECIES] * N_GENES_SPECIES
-             + [0.0] * (n_sp - N_GENES_SPECIES))
     simulate_reads(comm, fq, n_reads=N_GENES_READS, read_len=100,
                    error_rate=0.005, indel_rate=0.01, seed=8,
-                   abundances=abund)
+                   abundances=_first_n_abundances(comm, N_GENES_SPECIES))
     t_sim = time.time() - t0
     t0 = time.time()
     ids = [sp.species_id for sp in comm.species[:N_GENES_SPECIES]]
@@ -583,18 +629,59 @@ def phase_genes_data():
     return comm, fq, prof
 
 
-def _first_batch(al, fq, fields):
-    """The first batch of fq on the card, as the main path uploads it."""
+def _first_n_abundances(comm, n):
+    """Equal abundances for the first n species of comm, 0 for the rest."""
+    return [1.0 / n] * n + [0.0] * (len(comm.species) - n)
+
+
+def _first_batch(al, fq, fields, batch_size=BATCH):
+    """The first batch of fq on the aligner's device, as the main path
+    uploads it: single-end reads, or mate pairs (rows 2i / 2i+1) when
+    fq is a tuple (-1, -2)."""
     import torch
 
-    from midas_tpu_torch.io.batch import load_read_batches
+    from midas_tpu_torch.io.batch import load_paired_batches, load_read_batches
 
-    b = next(iter(load_read_batches([fq], batch_size=BATCH,
-                                    max_len=al.max_read_len)))
-    return b, [torch.from_numpy(getattr(b, f)).cuda() for f in fields]
+    if isinstance(fq, tuple):
+        batches = load_paired_batches(*fq, batch_size=batch_size,
+                                      max_len=al.max_read_len)
+    else:
+        batches = load_read_batches([fq], batch_size=batch_size,
+                                    max_len=al.max_read_len)
+    b = next(iter(batches))
+    return b, [torch.from_numpy(getattr(b, f)).to(al.device) for f in fields]
 
 
-def _genes_step(prof, scoring, b, arrays, state=None):
+def pair_decisions(prof, reads, batch_size=BATCH):
+    """On the first paired batch, on the profiler's device: the share of
+    its real pairs that have a concordant candidate pair (has_pair of
+    device_steps.paired_best_hit_device), and the real reads whose
+    candidate or MAPQ the mate-pair pick changes against the per-read
+    best hit (best_hit_device) on the same pass-1 table."""
+    import torch
+
+    from midas_tpu_torch.align.pipeline import align_candidates_score
+    from midas_tpu_torch.profile import device_steps as ds
+
+    al = prof.aligner
+    b, (codes, quals, qlens) = _first_batch(
+        al, reads, ("codes", "quals", "lengths"), batch_size)
+    out1, _ = align_candidates_score(
+        al.index_arrays, al.pack_arrays, codes, qlens, al.scoring,
+        al.seed_params, al.max_read_len, quals=quals)
+    table = torch.from_numpy(ds.score_min_table(
+        al.scoring, al.max_read_len)).to(al.device)
+    n = b.n_reads
+    has_pair = ds.concordant_pairs(out1, qlens, al.scoring, table)[0]
+    _, pcol, pmapq = ds.paired_best_hit_device(out1, qlens, al.scoring,
+                                               table)
+    _, ucol, umapq = ds.best_hit_device(out1, qlens, al.scoring, table)
+    return dict(concordant_share=float(has_pair[: n // 2].double().mean()),
+                moved_best_col=int((pcol != ucol)[:n].sum()),
+                moved_mapq=int((pmapq != umapq)[:n].sum()), reads=n)
+
+
+def _genes_step(prof, scoring, b, arrays, state=None, paired=False):
     """One genes_update of batch b under `scoring` (returns its state)."""
     import torch
 
@@ -611,7 +698,7 @@ def _genes_step(prof, scoring, b, arrays, state=None):
         mean_qual, b.n_reads, scoring=scoring, seed_params=al.seed_params,
         max_len=al.max_read_len, mapid=float(prof.mapid),
         readq=float(prof.readq), min_mapq=int(prof.mapq),
-        aln_cov=float(prof.aln_cov), smin_table=table)
+        aln_cov=float(prof.aln_cov), smin_table=table, paired=paired)
 
 
 def _captured_dp_calls(fn):
@@ -634,10 +721,43 @@ def _captured_dp_calls(fn):
     return calls
 
 
-def phase_genes_kernels(prof, fq):
-    """K3 (pass 1) and K2 (pass 2) at the genes path's shapes."""
+def _two_pass_variants(step, sname, sc, path, layout, phase):
+    """Run one two-pass step (step()) with the DP launches captured:
+    pass 1 must be K3 with qpen and pass 2 K2; each is held to the plain
+    version on its captured inputs (_check_variant, shapes "<path> pass
+    1" / "<path> pass 2"), and K3 to K2 on the fields both compute.
+    Emits `phase` per variant; returns the two records."""
     import torch
 
+    from midas_tpu_torch.align import cuda_sw
+
+    calls = _captured_dp_calls(step)
+    if len(calls) != 2:
+        fail(f"{path} ({sname}) launched the DP {len(calls)} times, not "
+             "twice")
+    (p1, k1), (p2, k2) = calls
+    if not (k1["score_only"] and k1["qpen"] is not None
+            and not k2["score_only"] and k2["qpen"] is not None):
+        fail(f"{path} ({sname}) did not run K3 with qpen, then K2")
+    v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
+                        layout, shape=f"{path} pass 1")
+    v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
+                        layout, shape=f"{path} pass 2")
+    # K3 agrees with K2 on the fields both compute, on pass 1's pairs
+    full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
+    k3_out = v3.pop("_out")
+    v2.pop("_out")
+    for k in k3_out:
+        if not torch.equal(k3_out[k], full[k]):
+            fail(f"K3 and K2 differ in {k} ({sname}, {path} pass 1)")
+    v3["equal_to_k2"] = True
+    for v in (v3, v2):
+        emit(phase, **v)
+    return [v3, v2]
+
+
+def phase_genes_kernels(prof, fq):
+    """K3 (pass 1) and K2 (pass 2) at the genes path's shapes."""
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
 
@@ -646,29 +766,9 @@ def phase_genes_kernels(prof, fq):
     layout = cuda_sw.packed_layout()
     variants = []
     for sname, sc in (("local", LOCAL_SCORING), ("global", GLOBAL_SCORING)):
-        calls = _captured_dp_calls(lambda: _genes_step(prof, sc, b, arrays))
-        if len(calls) != 2:
-            fail(f"genes_update ({sname}) launched the DP {len(calls)} "
-                 "times, not twice")
-        (p1, k1), (p2, k2) = calls
-        if not (k1["score_only"] and k1["qpen"] is not None
-                and not k2["score_only"] and k2["qpen"] is not None):
-            fail(f"genes_update ({sname}) did not run K3 with qpen, then K2")
-        v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
-                            layout, shape="genes pass 1")
-        v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
-                            layout, shape="genes pass 2")
-        # K3 agrees with K2 on the fields both compute, on pass 1's pairs
-        full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
-        k3_out = v3.pop("_out")
-        v2.pop("_out")
-        for k in k3_out:
-            if not torch.equal(k3_out[k], full[k]):
-                fail(f"K3 and K2 differ in {k} ({sname}, genes pass 1)")
-        v3["equal_to_k2"] = True
-        for v in (v3, v2):
-            emit("genes_kernels", **v)
-            variants.append(v)
+        variants += _two_pass_variants(
+            lambda: _genes_step(prof, sc, b, arrays), sname, sc, "genes",
+            layout, "genes_kernels")
     return variants
 
 
@@ -692,9 +792,25 @@ def phase_genes_main(comm, prof, fq):
         fail(f"genes path launched banded_sw {launches} for {n_batches} "
              "batches (want K3 with qpen and K2, once each per batch)")
 
-    # the repo's own check (tests/test_genes_snps.py::test_genes_outputs):
-    # the simulator's truth. Genome genes of a selected species sit near
-    # copy number 1; pangenome-only genes get no reads at all.
+    per_species = _genes_truth(comm, prof, res)
+    prof.write_results(os.path.join(WORK, "genes_main"))
+    step_ms, stages = _genes_device_step(prof, fq)
+    emit("genes_main", reads=N_GENES_READS, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=N_GENES_READS / dt,
+         banded_sw_launches=launches, device_step_ms=step_ms,
+         device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
+         max_memory_allocated=peak,
+         aligned_reads=int(res["aligned_reads"].sum()),
+         mapped_reads=int(res["mapped_reads"].sum()),
+         truth=per_species)
+    return launches
+
+
+def _genes_truth(comm, prof, res):
+    """The repo's own check (tests/test_genes_snps.py::test_genes_outputs):
+    the simulator's truth. Genome genes of a selected species sit near
+    copy number 1; pangenome-only genes get no reads at all. Returns the
+    per-species figures."""
     name_idx = {n: i for i, n in enumerate(prof.pack.names)}
     per_species = []
     for si, sp in enumerate(comm.species[:N_GENES_SPECIES]):
@@ -714,23 +830,25 @@ def phase_genes_main(comm, prof, fq):
         per_species.append(dict(species=sp.species_id, median_copies=med,
                                 mapped_reads=mapped,
                                 marker_cov=float(res["marker_cov"][si])))
-    prof.write_results(os.path.join(WORK, "genes_main"))
-    step_ms, stages = _genes_device_step(prof, fq)
-    emit("genes_main", reads=N_GENES_READS, batch=BATCH, batches=n_batches,
-         seconds=dt, reads_per_sec=N_GENES_READS / dt,
-         banded_sw_launches=launches, device_step_ms=step_ms,
-         device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
-         max_memory_allocated=peak,
-         aligned_reads=int(res["aligned_reads"].sum()),
-         mapped_reads=int(res["mapped_reads"].sum()),
-         truth=per_species)
-    return launches
+    return per_species
+
+
+def _pick_stage(out1, qlens, sc, table, paired):
+    """(stage name, ms, best_col) of the best-hit step on pass 1's
+    table: best_hit_device, or with paired the mate-pair pick
+    paired_best_hit_device."""
+    from midas_tpu_torch.profile import device_steps as ds
+
+    pick = ds.paired_best_hit_device if paired else ds.best_hit_device
+    ms, (_, best_col, _) = cuda_ms(lambda: pick(out1, qlens, sc, table), 5)
+    return ("pair_pick" if paired else "best_hit_mapq"), ms, best_col
 
 
 def _genes_device_step(prof, fq):
     """Mean device ms of genes_update on one batch, and a per-stage
     breakdown of the same work, by CUDA events. Stages without a call of
-    their own are differences of two timed calls."""
+    their own are differences of two timed calls. fq a tuple (-1, -2):
+    the first batch of mate pairs, through the paired step."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
@@ -740,13 +858,15 @@ def _genes_device_step(prof, fq):
 
     al = prof.aligner
     sp, sc = al.seed_params, al.scoring
+    paired = isinstance(fq, tuple)
     b, arrays = _first_batch(al, fq, ("codes", "quals", "lengths",
                                       "mean_qual"))
     codes, quals, qlens, mean_qual = arrays
     state = ds.genes_init(prof.pack.num_seqs, "cuda")
-    step_ms, _ = cuda_ms(lambda: _genes_step(prof, sc, b, arrays, state), 5)
+    step_ms, _ = cuda_ms(lambda: _genes_step(prof, sc, b, arrays, state,
+                                             paired), 5)
     (p1, k1), (p2, k2) = _captured_dp_calls(
-        lambda: _genes_step(prof, sc, b, arrays))
+        lambda: _genes_step(prof, sc, b, arrays, paired=paired))
     D, L = sp.band_width, codes.shape[1]
     table = torch.from_numpy(ds.score_min_table(sc, al.max_read_len)).cuda()
     r = {}
@@ -762,13 +882,12 @@ def _genes_device_step(prof, fq):
         al.max_read_len, quals=quals), 5)
     r["pair_prep_and_dedup"] = pass1_ms - r["seed"] - r["window_gather"] \
         - r["k3"]
-    r["best_hit_mapq"], (_, best_col, _) = cuda_ms(
-        lambda: ds.best_hit_device(out1, qlens, sc, table), 5)
+    pick, r[pick], best_col = _pick_stage(out1, qlens, sc, table, paired)
     r["k2"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p2, **k2), 5)
     pass2_ms, _ = cuda_ms(lambda: pl.align_chosen_full(
         al.pack_arrays, aux, codes, qlens, best_col, sc, sp), 5)
     r["pass2_gather"] = pass2_ms - r["k2"]
-    r["keep_and_scatter"] = step_ms - pass1_ms - r["best_hit_mapq"] - pass2_ms
+    r["keep_and_scatter"] = step_ms - pass1_ms - r[pick] - pass2_ms
     return step_ms, r
 
 
@@ -858,7 +977,7 @@ def phase_snps_data(gcomm):
     return prof
 
 
-def _snps_step(prof, scoring, b, arrays, state=None):
+def _snps_step(prof, scoring, b, arrays, state=None, paired=False):
     """One snps_update of batch b under `scoring` (returns its state)."""
     import torch
 
@@ -879,14 +998,12 @@ def _snps_step(prof, scoring, b, arrays, state=None):
         seed_params=al.seed_params, max_len=al.max_read_len,
         mapid=float(prof.mapid), readq=float(prof.readq),
         min_mapq=int(prof.mapq), baseq=int(prof.baseq),
-        aln_cov=float(prof.aln_cov), smin_table=table)
+        aln_cov=float(prof.aln_cov), smin_table=table, paired=paired)
 
 
 def phase_snps_kernels(prof, fq):
     """K3 with qpen (pass 1) and K2 (pass 2) at the snps path's shapes,
     GLOBAL (the path's default) and LOCAL."""
-    import torch
-
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
 
@@ -895,41 +1012,57 @@ def phase_snps_kernels(prof, fq):
     layout = cuda_sw.packed_layout()
     variants = []
     for sname, sc in (("global", GLOBAL_SCORING), ("local", LOCAL_SCORING)):
-        calls = _captured_dp_calls(lambda: _snps_step(prof, sc, b, arrays))
-        if len(calls) != 2:
-            fail(f"snps_update ({sname}) launched the DP {len(calls)} "
-                 "times, not twice")
-        (p1, k1), (p2, k2) = calls
-        if not (k1["score_only"] and k1["qpen"] is not None
-                and not k2["score_only"] and k2["qpen"] is not None):
-            fail(f"snps_update ({sname}) did not run K3 with qpen, then K2")
-        v3 = _check_variant("K3", sname, sc, *p1[:3], k1["qpen"], True,
-                            layout, shape="snps pass 1")
-        v2 = _check_variant("K2", sname, sc, *p2[:3], k2["qpen"], False,
-                            layout, shape="snps pass 2")
-        full = cuda_sw.banded_align_cuda(*p1[:3], sc, qpen=k1["qpen"])
-        k3_out = v3.pop("_out")
-        v2.pop("_out")
-        for k in k3_out:
-            if not torch.equal(k3_out[k], full[k]):
-                fail(f"K3 and K2 differ in {k} ({sname}, snps pass 1)")
-        v3["equal_to_k2"] = True
-        for v in (v3, v2):
-            emit("snps_kernels", **v)
-            variants.append(v)
+        variants += _two_pass_variants(
+            lambda: _snps_step(prof, sc, b, arrays), sname, sc, "snps",
+            layout, "snps_kernels")
     return variants
 
 
+def _paired_variants(prof, reads, step_fn, path):
+    """K3 with qpen and K2 on the first paired batch's DP inputs, under
+    the profiler's scoring (the paired path's own), as the kernels
+    phases check them: emitted as `<path>_kernels`."""
+    from midas_tpu_torch.align import cuda_sw
+
+    sc = prof.aligner.scoring
+    b, arrays = _first_batch(prof.aligner, reads,
+                             ("codes", "quals", "lengths", "mean_qual"))
+    return _two_pass_variants(
+        lambda: step_fn(prof, sc, b, arrays, paired=True),
+        "local" if sc.mode == "local" else "global", sc,
+        path.replace("_", " "), cuda_sw.packed_layout(), f"{path}_kernels")
+
+
 def phase_snps_main(gcomm, prof, fq):
+    return _snps_cell(gcomm, prof, fq, "snps_main")[0]
+
+
+def phase_paired_snps_main(gcomm, prof, reads, smi_line):
+    """SnpsProfiler.run over the paired cell's mate pairs (-1, -2), as
+    run_snps calls it: snps_main's checks and figures, with the pair
+    pick, the concordant share and K3 / K2 held to the plain version on
+    the first paired batch. Returns (launches, variant records)."""
+    return _snps_cell(gcomm, prof, reads, "paired_snps_main", smi_line)
+
+
+def _snps_cell(gcomm, prof, fq, phase, smi_line=None):
+    """One snps cell: SnpsProfiler.run with a checkpoint path over fq
+    (single-end reads, or a tuple (-1, -2) of mate pairs), checked
+    against the simulator's truth; emits `phase` and returns the run's
+    kernel launches and (paired) the first batch's variant records."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.profile import checkpoint as ckpt
 
-    prof.run([fq], max_reads=BATCH, batch_size=BATCH)     # warm-up
+    paired = isinstance(fq, tuple)
+    paths = list(fq) if paired else [fq]
+    n_reads = 2 * N_PAIRS if paired else N_GENES_READS
+    prof.run(paths, max_reads=BATCH // 2 if paired else BATCH,
+             batch_size=BATCH, paired=paired)     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n_batches = -(-N_GENES_READS // BATCH)
+    n_batches = -(-n_reads // BATCH)
     finalize_s = []
     real_finalize = prof._finalize
 
@@ -950,20 +1083,21 @@ def phase_snps_main(gcomm, prof, fq):
     prof._finalize = timed_finalize
     ckpt.save = timed_save
     # run_snps's arguments: the state is saved at the end of the stream
-    state_path = os.path.join(WORK, "snps_main", "state.npz")
+    state_path = os.path.join(WORK, phase, "state.npz")
     cuda_sw.LAUNCHES.clear()
     t0 = time.perf_counter()
-    res = prof.run([fq], batch_size=BATCH, checkpoint_path=state_path)
+    res = prof.run(paths, batch_size=BATCH, checkpoint_path=state_path,
+                   paired=paired)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     del prof._finalize
     ckpt.save = real_save
     if len(save_s) != 1:
-        fail(f"snps_main saved its state {len(save_s)} times (want 1)")
+        fail(f"{phase} saved its state {len(save_s)} times (want 1)")
     launches = dict(cuda_sw.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if launches != {"K3_qpen": n_batches, "K2": n_batches}:
-        fail(f"snps path launched banded_sw {launches} for {n_batches} "
+        fail(f"{phase} launched banded_sw {launches} for {n_batches} "
              "batches (want K3 with qpen and K2, once each per batch)")
 
     # the repo's own check (tests/test_genes_snps.py:54-103): the
@@ -987,12 +1121,19 @@ def phase_snps_main(gcomm, prof, fq):
              f"{int(deep.sum())} sites with depth >= 3")
     # one species' sites file (the writer is host work outside reads/s)
     t = time.perf_counter()
-    path = prof.write_sites(os.path.join(WORK, "snps_main"), 0, depth)
+    path = prof.write_sites(os.path.join(WORK, phase), 0, depth)
     write_s = time.perf_counter() - t
     sites = _check_sites_file(path, counts, pack, prof.contig_species, 0)
+    extra, variants = {}, []
+    if paired:
+        dec = pair_decisions(prof, fq)
+        _check_concordant_share(phase, dec, "snps")
+        extra = dict(pairs=n_reads // 2, pairs_per_sec=n_reads / 2 / dt,
+                     first_batch=dec, card=smi_line)
+        variants = _paired_variants(prof, fq, _snps_step, "paired_snps")
     step_ms, stages = _snps_device_step(prof, fq)
-    emit("snps_main", reads=N_GENES_READS, batch=BATCH, batches=n_batches,
-         seconds=dt, reads_per_sec=N_GENES_READS / dt,
+    emit(phase, reads=n_reads, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=n_reads / dt,
          banded_sw_launches=launches, device_step_ms=step_ms,
          device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
          max_memory_allocated=peak, gapped_rows=int(res["n_gapped"]),
@@ -1004,8 +1145,8 @@ def phase_snps_main(gcomm, prof, fq):
          sites_depth_ge3=int(deep.sum()), modal_equals_reference=agree,
          covered_sites=int((depth > 0).sum()),
          writer_sites=sites, writer_seconds=write_s,
-         writer_seconds_per_million_sites=write_s / (sites / 1e6))
-    return launches
+         writer_seconds_per_million_sites=write_s / (sites / 1e6), **extra)
+    return launches, variants
 
 
 def _check_sites_file(path, counts, pack, contig_species, si):
@@ -1040,7 +1181,8 @@ def _check_sites_file(path, counts, pack, contig_species, si):
 def _snps_device_step(prof, fq):
     """Mean device ms of snps_update on one batch, and a per-stage
     breakdown of the same work, by CUDA events. Stages without a call of
-    their own are differences of two timed calls."""
+    their own are differences of two timed calls. fq a tuple (-1, -2):
+    the first batch of mate pairs, through the paired step."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
@@ -1050,13 +1192,15 @@ def _snps_device_step(prof, fq):
 
     al = prof.aligner
     sp, sc = al.seed_params, al.scoring
+    paired = isinstance(fq, tuple)
     b, arrays = _first_batch(al, fq, ("codes", "quals", "lengths",
                                       "mean_qual"))
     codes, quals, qlens, mean_qual = arrays
-    state = _snps_step(prof, sc, b, arrays)
-    step_ms, _ = cuda_ms(lambda: _snps_step(prof, sc, b, arrays, state), 5)
+    state = _snps_step(prof, sc, b, arrays, paired=paired)
+    step_ms, _ = cuda_ms(lambda: _snps_step(prof, sc, b, arrays, state,
+                                            paired), 5)
     (p1, k1), (p2, k2) = _captured_dp_calls(
-        lambda: _snps_step(prof, sc, b, arrays, state))
+        lambda: _snps_step(prof, sc, b, arrays, state, paired))
     D, L = sp.band_width, codes.shape[1]
     table = torch.from_numpy(ds.score_min_table(sc, al.max_read_len)).cuda()
     r = {}
@@ -1072,14 +1216,12 @@ def _snps_device_step(prof, fq):
         al.max_read_len, quals=quals), 5)
     r["pair_prep_and_dedup"] = pass1_ms - r["seed"] - r["window_gather"] \
         - r["k3"]
-    r["best_hit_mapq"], (_, best_col, _) = cuda_ms(
-        lambda: ds.best_hit_device(out1, qlens, sc, table), 5)
+    pick, r[pick], best_col = _pick_stage(out1, qlens, sc, table, paired)
     r["k2"], _ = cuda_ms(lambda: cuda_sw.banded_align_cuda(*p2, **k2), 5)
     pass2_ms, _ = cuda_ms(lambda: pl.align_chosen_full(
         al.pack_arrays, aux, codes, qlens, best_col, sc, sp), 5)
     r["pass2_gather"] = pass2_ms - r["k2"]
-    r["pileup_and_spill"] = step_ms - pass1_ms - r["best_hit_mapq"] \
-        - pass2_ms
+    r["pileup_and_spill"] = step_ms - pass1_ms - r[pick] - pass2_ms
     return step_ms, r
 
 
@@ -1138,15 +1280,184 @@ def phase_snps_cpu(comm, fq):
     return result
 
 
+def phase_paired_data(gcomm, smi_line):
+    """The paired cells' reads: N_PAIRS mate pairs from the genes cell's
+    10 species (its community, pangenome profiler and snps profiler are
+    reused: no new database)."""
+    from midas_tpu_torch.testkit.simulate import simulate_paired_reads
+
+    reads = tuple(os.path.join(WORK, f"paired_r{i}.fq.gz") for i in (1, 2))
+    t0 = time.time()
+    simulate_paired_reads(gcomm, *reads, n_pairs=N_PAIRS,
+                          abundances=_first_n_abundances(gcomm,
+                                                         N_GENES_SPECIES),
+                          **PAIRED_SIM)
+    emit("paired_data", pairs=N_PAIRS, reads=2 * N_PAIRS,
+         species=N_GENES_SPECIES, maxins=500,
+         simulate_seconds=round(time.time() - t0, 1), card=smi_line,
+         **{k: v for k, v in PAIRED_SIM.items() if k != "seed"})
+    return reads
+
+
+def _loader_seconds(reads, max_len):
+    """Host seconds to parse the two files into BATCH-row batches with no
+    device work: as mate pairs (load_paired_batches: two half-size
+    native streams, interleaved in numpy with the name list) and as
+    single-end reads of the same files (load_read_batches)."""
+    from midas_tpu_torch.io.batch import load_paired_batches, load_read_batches
+
+    t = time.perf_counter()
+    n_paired = sum(b.n_reads for b in load_paired_batches(
+        *reads, batch_size=BATCH, max_len=max_len))
+    paired_s = time.perf_counter() - t
+    t = time.perf_counter()
+    n_single = sum(b.n_reads for b in load_read_batches(
+        list(reads), batch_size=BATCH, max_len=max_len))
+    single_s = time.perf_counter() - t
+    if n_paired != n_single:
+        fail(f"the paired loader gave {n_paired} reads, the single-end "
+             f"loader {n_single}")
+    return dict(load_paired_batches=paired_s, load_read_batches=single_s,
+                interleave=paired_s - single_s)
+
+
+def phase_paired_genes_main(gcomm, prof, reads, smi_line):
+    """GenesProfiler.run over the paired cell's mate pairs (-1, -2):
+    genes_main's checks and figures, with the pair pick, the concordant
+    share, the counts of an unpaired run of the same files, the loader's
+    host seconds, and K3 / K2 held to the plain version on the first
+    paired batch. Returns (launches, variant records)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+
+    paths = list(reads)
+    prof.run(paths, max_reads=BATCH // 2, batch_size=BATCH,
+             paired=True)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_reads = 2 * N_PAIRS
+    n_batches = -(-n_reads // BATCH)
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = prof.run(paths, batch_size=BATCH, paired=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cuda_sw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"K3_qpen": n_batches, "K2": n_batches}:
+        fail(f"paired genes path launched banded_sw {launches} for "
+             f"{n_batches} batches (want K3 with qpen and K2, once each "
+             "per batch)")
+    per_species = _genes_truth(gcomm, prof, res)
+    counted = {k: int(res[k].sum()) for k in ("aligned_reads",
+                                              "mapped_reads")}
+    # The pairing must take effect. On these reads that cannot be required
+    # of the counts: the 10 selected species share no sequence (their
+    # related copies are not selected), so a concordant pair picks the
+    # candidates each mate picks alone, and nearly every read clears the
+    # MAPQ gates either way (a tiny CPU rehearsal: equal genes and snps
+    # counts). So it is required of the picks: the pair MAPQ must move
+    # some reads' MAPQ on the first batch. The counts of an unpaired run
+    # are reported beside the paired ones (the CPU tests, whose selection
+    # holds a related genome, require them to differ).
+    unpaired = prof.run(paths, batch_size=BATCH)
+    dec = pair_decisions(prof, reads)
+    _check_concordant_share("paired_genes_main", dec, "genes")
+    if not (dec["moved_best_col"] or dec["moved_mapq"]):
+        fail("paired_genes_main: the mate-pair pick changed no read's "
+             "candidate or MAPQ on the first batch")
+    step_ms, stages = _genes_device_step(prof, reads)
+    variants = _paired_variants(prof, reads, _genes_step, "paired_genes")
+    emit("paired_genes_main", reads=n_reads, pairs=N_PAIRS, batch=BATCH,
+         batches=n_batches, seconds=dt, reads_per_sec=n_reads / dt,
+         pairs_per_sec=N_PAIRS / dt, banded_sw_launches=launches,
+         device_step_ms=step_ms,
+         device_busy_share=step_ms * n_batches / 1e3 / dt, stage_ms=stages,
+         max_memory_allocated=peak, first_batch=dec,
+         loader_host_seconds=_loader_seconds(reads, prof.aligner.max_read_len),
+         unpaired={k: int(unpaired[k].sum()) for k in counted},
+         counts_differ_from_unpaired=not all(
+             np.array_equal(res[k], unpaired[k]) for k in counted),
+         truth=per_species, card=smi_line, **counted)
+    return launches, variants
+
+
+def _check_concordant_share(phase, dec, path):
+    """Fail unless the first batch's concordant share reaches its bound."""
+    bound = PAIRED_MIN_CONCORDANT[path]
+    if dec["concordant_share"] < bound:
+        fail(f"{phase}: {dec['concordant_share']} of the first batch's "
+             f"pairs are concordant (bound {bound})")
+
+
+def phase_paired_cli(comm, smi_line):
+    """run_midas genes (-m local) and snps (-m global) over 1,024 mate
+    pairs from the phase-3 community's first 20 species: -1/-2 on the
+    card and on the CPU, and --interleaved over the same pairs on the
+    card. Every output file and the saved state must be identical; the
+    CPU runs launch nothing."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+    from midas_tpu_torch.testkit.simulate import simulate_paired_reads
+
+    abund = _first_n_abundances(comm, N_ABUNDANT)
+    r1, r2, inter = (os.path.join(WORK, f"cli_pairs_{n}.fq.gz")
+                     for n in ("1", "2", "interleaved"))
+    for out1, out2 in ((r1, r2), (inter, None)):   # the same pairs twice
+        simulate_paired_reads(comm, out1, out2, n_pairs=N_CLI_PAIRS,
+                              abundances=abund, **PAIRED_SIM)
+    ids = ",".join(sp.species_id for sp in comm.species[:N_GENES_CPU_SPECIES])
+    n_b = -(-2 * N_CLI_PAIRS // 8192)
+    result = {}
+    for program, mode, same in (("genes", "local", _same_genes_outputs),
+                                ("snps", "global", _same_snps_outputs)):
+        outs, secs, launches = {}, {}, {}
+        for run, dev, reads in (
+                ("mates", "cuda", ["-1", r1, "-2", r2]),
+                ("mates", "cpu", ["-1", r1, "-2", r2]),
+                ("interleaved", "cuda", ["-1", inter, "--interleaved"])):
+            name = f"{run}_{dev}"
+            outs[name] = os.path.join(WORK, f"paired_cli_{program}_{name}")
+            cuda_sw.LAUNCHES.clear()
+            t0 = time.time()
+            run_midas([program, outs[name], *reads, "-d", comm.db_dir,
+                       "--species_id", ids, "-m", mode, "--device", dev])
+            secs[name] = round(time.time() - t0, 2)
+            launches[name] = dict(cuda_sw.LAUNCHES)
+        if launches["mates_cpu"]:
+            fail(f"paired {program} on the CPU launched the kernel")
+        for name in ("mates_cuda", "interleaved_cuda"):
+            if launches[name] != {"K3_qpen": n_b, "K2": n_b}:
+                fail(f"paired {program} -m {mode} ({name}) launched "
+                     f"{launches[name]}")
+        found = same(outs["mates_cuda"], outs["mates_cpu"],
+                     f"paired {program} -m {mode}, card vs CPU")
+        same(outs["interleaved_cuda"], outs["mates_cuda"],
+             f"paired {program} -m {mode}, --interleaved vs -1/-2")
+        result[program] = dict(mode=mode, identical=True,
+                               interleaved_identical=True,
+                               state_fields=found[0], mapped_reads=found[1],
+                               card_launches=launches["mates_cuda"],
+                               seconds=secs)
+    emit("paired_cli", pairs=N_CLI_PAIRS, species=N_GENES_CPU_SPECIES,
+         card=smi_line, **result)
+    return result
+
+
 def kernels_line(variants, by_path, smi_line):
     """The kernels line: one entry per kernel the paths run, timed at its
     path's shape, with its path's launches — banded_sw (K1, packed, at
     the species batch), banded_sw_k3_qpen (K3, packed, at genes pass 1),
     banded_sw_k2 (K2, packed, at genes pass 2) — and banded_sw_template
     (the template kernel, on the above-the-limit check, on no path).
-    Marks each variant record with its path and that path's launches."""
+    Marks each variant record with its path and that path's launches
+    (the paired paths' records, "paired genes / snps pass 1 / 2", sit in
+    their kernels' variants)."""
     for v in variants:
         path = ("species" if v["shape"] == "main path batch" else
+                "paired_genes" if v["shape"].startswith("paired genes") else
+                "paired_snps" if v["shape"].startswith("paired snps") else
                 "genes" if v["shape"].startswith("genes") and
                 v["scoring"] == "local" else
                 "genes_cli_global" if v["shape"].startswith("genes") else
@@ -1208,18 +1519,30 @@ def main():
     variants += phase_genes_kernels(gprof, gfq)
     genes_launches = phase_genes_main(gcomm, gprof, gfq)
     genes_cli = phase_genes_cpu(comm, fq)
+    pairs = phase_paired_data(gcomm, smi_line)
+    paired_genes_launches, paired_variants = phase_paired_genes_main(
+        gcomm, gprof, pairs, smi_line)
+    variants += paired_variants
     del gprof
     torch.cuda.empty_cache()
     sprof = phase_snps_data(gcomm)
     variants += phase_snps_kernels(sprof, gfq)
     snps_launches = phase_snps_main(gcomm, sprof, gfq)
+    paired_snps_launches, paired_variants = phase_paired_snps_main(
+        gcomm, sprof, pairs, smi_line)
+    variants += paired_variants
     del sprof
     torch.cuda.empty_cache()
     snps_cli = phase_snps_cpu(comm, fq)
+    paired_cli = phase_paired_cli(comm, smi_line)
     by_path = {"species": species_launches, "genes": genes_launches,
                "genes_cli_global": genes_cli["global"]["card_launches"],
                "snps": snps_launches,
-               "snps_cli_local": snps_cli["local"]["card_launches"]}
+               "snps_cli_local": snps_cli["local"]["card_launches"],
+               "paired_genes": paired_genes_launches,
+               "paired_snps": paired_snps_launches,
+               "paired_cli_genes": paired_cli["genes"]["card_launches"],
+               "paired_cli_snps": paired_cli["snps"]["card_launches"]}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

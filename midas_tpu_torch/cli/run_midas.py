@@ -10,8 +10,9 @@ scripts/run_midas.py :86-143, :204-289, :338-430) plus --device. Run as
 
 It runs on the card (--device cuda, the default) and raises without
 one; --device cpu runs the plain PyTorch versions of the kernels.
-Not yet ported: --m8 (ignored with --remove_temp, as midas_tpu does),
-paired-end reads (-2, --interleaved), multi-process runs.
+genes and snps take mate pairs with -1/-2 or --interleaved. Not yet
+ported: --m8 (ignored with --remove_temp, as midas_tpu does) and
+multi-process runs.
 
 Differences from the reference, by design:
 - no --threads-style process parallelism: batches run data-parallel on
@@ -91,9 +92,9 @@ def _add_shared_align_args(p, mode_default):
     align.add_argument("-1", type=str, dest="m1", required=True,
                        help="FASTA/FASTQ file containing 1st mate if using paired-end reads; otherwise unpaired reads")
     align.add_argument("-2", type=str, dest="m2",
-                       help="FASTA/FASTQ file containing 2nd mate (not yet ported: raises)")
+                       help="FASTA/FASTQ file containing 2nd mate")
     align.add_argument("--interleaved", action="store_true", default=False,
-                       help="FASTA/FASTQ file in -1 are paired and contain forward AND reverse reads (not yet ported: raises)")
+                       help="FASTA/FASTQ file in -1 are paired and contain forward AND reverse reads")
     align.add_argument("-s", type=str, dest="speed", default="very-sensitive",
                        choices=["very-fast", "fast", "sensitive", "very-sensitive"],
                        help="Accepted for compatibility; the aligner always runs full sensitivity")

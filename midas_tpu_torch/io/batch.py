@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from itertools import zip_longest
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -174,3 +175,100 @@ def load_read_batches(
         yield batch_reads(buf, batch_size, max_len)
     if truncated:
         _warn_truncated(truncated, max_len)
+
+
+def _check_interleaved_pairs(b: ReadBatch) -> None:
+    """When interleaved read names carry bowtie2-style /1 and /2 mate
+    suffixes, verify rows 2i/2i+1 really are mates of the same fragment
+    (batch sizes are even, so pairs never straddle batches).
+
+    Sampled — first, last, and every 16th pair per batch — so the check
+    stays off the hot parsing path (a full per-pair Python loop runs at
+    a rate comparable to the native parser itself). A frame shift from
+    a truncated record mispairs EVERY subsequent pair, so sampling
+    still catches it within one batch; the odd-total check in
+    load_paired_batches covers the terminal case."""
+    n_pairs = b.n_reads // 2
+    if n_pairs == 0:
+        return
+    probe = set(range(0, n_pairs, 16))
+    probe.add(n_pairs - 1)
+    for p in probe:
+        a, c = b.names[2 * p], b.names[2 * p + 1]
+        a_sfx = a[-2:] in ("/1", "/2")
+        c_sfx = c[-2:] in ("/1", "/2")
+        if not (a_sfx or c_sfx):
+            continue
+        if not (a.endswith("/1") and c.endswith("/2") and a[:-2] == c[:-2]):
+            raise ValueError(
+                f"--interleaved mate pairing broken at reads {a!r} / {c!r}:"
+                " expected name/1 followed by name/2")
+
+
+def load_paired_batches(
+    m1: str,
+    m2: Optional[str] = None,
+    batch_size: int = 1024,
+    max_len: int = 128,
+    read_length: Optional[int] = None,
+    max_reads: Optional[int] = None,
+    interleaved: bool = False,
+) -> Iterator[ReadBatch]:
+    """Mate-paired batches: mate 1 of pair i at row 2i, mate 2 at row
+    2i+1 (the layout device_steps.paired_best_hit_device expects).
+
+    Two input shapes, mirroring bowtie2's (reference call sites
+    midas/run/genes.py:127-132, snps.py:109-114):
+    - `-1 f1 -2 f2`: two lock-step files; implemented by interleaving
+      rows of two half-size single-file batch streams, so the native
+      C++ reader keeps doing the parsing.
+    - `--interleaved f`: one file with mates already alternating; an
+      even batch_size keeps pairs intact, so this IS plain batching.
+
+    max_reads counts PAIRS here (bowtie2 -u semantics for paired input).
+    Raises on mate-count mismatch between -1 and -2."""
+    if batch_size % 2:
+        batch_size += 1
+    if interleaved or m2 is None:
+        total = 0
+        for b in load_read_batches(
+                [m1], batch_size=batch_size, max_len=max_len,
+                read_length=read_length,
+                max_reads=2 * max_reads if max_reads else None):
+            if interleaved:
+                _check_interleaved_pairs(b)
+            total += b.n_reads
+            yield b
+        if interleaved and total % 2:
+            raise ValueError(
+                f"--interleaved input has an odd read count ({total}): "
+                "a truncated file would silently shift every subsequent "
+                "mate pairing")
+        return
+    half = batch_size // 2
+    it1 = load_read_batches([m1], batch_size=half, max_len=max_len,
+                            read_length=read_length, max_reads=max_reads)
+    it2 = load_read_batches([m2], batch_size=half, max_len=max_len,
+                            read_length=read_length, max_reads=max_reads)
+    sentinel = object()
+    for b1, b2 in zip_longest(it1, it2, fillvalue=sentinel):
+        if b1 is sentinel or b2 is sentinel or b1.n_reads != b2.n_reads:
+            raise ValueError(
+                "paired input files have different read counts "
+                "(-1 and -2 must have matching mates)")
+        B, L = batch_size, max_len
+        codes = np.full((B, L), PAD_CODE, dtype=np.int8)
+        quals = np.zeros((B, L), dtype=np.int8)
+        lengths = np.zeros(B, dtype=np.int32)
+        mean_qual = np.zeros(B, dtype=np.float32)
+        codes[0::2], codes[1::2] = b1.codes, b2.codes
+        quals[0::2], quals[1::2] = b1.quals, b2.quals
+        lengths[0::2], lengths[1::2] = b1.lengths, b2.lengths
+        mean_qual[0::2], mean_qual[1::2] = b1.mean_qual, b2.mean_qual
+        names: List[str] = []
+        for a, b in zip(b1.names, b2.names):
+            names.extend((a, b))
+        # real pairs land contiguously at rows 0..2*n_reads-1 (both
+        # source batches are front-packed), so no compaction needed
+        yield ReadBatch(names, codes, lengths, quals, mean_qual,
+                        2 * b1.n_reads)

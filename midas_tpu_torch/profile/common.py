@@ -1,7 +1,7 @@
 """Shared pieces of the per-sample pipelines: species selection
 bookkeeping (genes.py:32-48, snps.py:38-53), the choice of read-batch
-stream and the guard against multi-process launches. Single process;
-mate-paired streams are not yet ported."""
+stream (single-end, or mate-paired) and the guard against
+multi-process launches."""
 
 from __future__ import annotations
 
@@ -10,10 +10,6 @@ from typing import Dict, List
 
 from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.profile.species import select_species
-
-PAIRED_NOT_PORTED = ("paired-end reads (-2 / --interleaved) are not yet "
-                     "ported to midas_tpu_torch")
-
 
 def _multi_process() -> bool:
     """True under a launcher of several processes (torch.distributed
@@ -60,13 +56,20 @@ def resolve_species_list(args: Dict, db: Database, subdir: str) -> List[str]:
 def select_batches(read_paths, batch_size: int, max_len: int, max_reads,
                    paired: bool = False, interleaved: bool = False,
                    read_length=None):
-    """The batch stream: plain concatenated single-end reads (bowtie2's
-    -U input). The mate-paired stream (-1/-2, --interleaved; reference
-    invocations midas/run/genes.py:127-132) is not yet ported."""
-    from midas_tpu_torch.io.batch import load_read_batches
+    """Pick the batch stream: mate-paired (rows 2i/2i+1 are mates, for
+    bowtie2-style pairing) or plain concatenated single-end — the run
+    layer's equivalent of bowtie2's -1/-2/--interleaved vs -U inputs
+    (reference invocations: midas/run/genes.py:127-132)."""
+    from midas_tpu_torch.io.batch import load_paired_batches, load_read_batches
 
-    if paired or interleaved:
-        raise NotImplementedError(PAIRED_NOT_PORTED)
+    if paired:
+        paths = ([read_paths] if isinstance(read_paths, (str, os.PathLike))
+                 else list(read_paths))
+        m2 = paths[1] if len(paths) > 1 else None
+        return load_paired_batches(
+            paths[0], m2, batch_size=batch_size, max_len=max_len,
+            max_reads=max_reads, interleaved=interleaved,
+            read_length=read_length)
     return load_read_batches(read_paths, batch_size=batch_size,
                              max_len=max_len, max_reads=max_reads,
                              read_length=read_length)

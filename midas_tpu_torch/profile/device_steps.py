@@ -16,8 +16,8 @@ JAX package sums in float32, exact only below 2^24 bp per species), and
 the stream rank amb_ord is int64 (int32 overflows past 2^31 reads).
 Results are equal wherever the JAX package is exact.
 
-The species step and the single-end genes and snps steps are ported;
-mate pairing is not yet.
+The species step and the genes and snps steps, single-end and
+mate-paired, are ported.
 """
 
 from __future__ import annotations
@@ -184,6 +184,127 @@ def best_hit_device(
     aligned = (best > NEG_INF / 2) & (best >= smin_i.to(torch.float32))
     mapq = mapq_device(best, second, smin_i, sperf_i, has_second,
                        local=scoring.mode == "local")
+    return aligned, best_col, mapq
+
+
+def concordant_pairs(
+    out: Dict[str, torch.Tensor], qlens: torch.Tensor, scoring: ScoringParams,
+    smin_table: torch.Tensor, maxins: int = 500,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The best concordant candidate pair of each mate pair (rows 2i /
+    2i+1), by plain torch ops over the [P, C, C] planes of candidate
+    pairs (P = B/2): the pair half of paired_best_hit_device.
+
+    Returns (has_pair [P] bool, pair_col [B] int64 — both mates'
+    columns, meaningful where has_pair — and pair_mapq [P] int32)."""
+    B, C = out["score"].shape
+    Pn = B // 2
+    scores = torch.where(out["valid"], out["score"], NEG_INF)
+    s1, s2 = scores[0::2], scores[1::2]                       # [P, C]
+    seq1, seq2 = out["seq_idx"][0::2], out["seq_idx"][1::2]
+    st1, st2 = out["strand"][0::2], out["strand"][1::2]
+    t1s, t2s = out["tstart"][0::2], out["tstart"][1::2]
+    t1e, t2e = out["tend"][0::2], out["tend"][1::2]
+
+    same_seq = seq1[:, :, None] == seq2[:, None, :]           # [P, C, C]
+    opposite = st1[:, :, None] != st2[:, None, :]
+    frag = (torch.maximum(t1e[:, :, None], t2e[:, None, :])
+            - torch.minimum(t1s[:, :, None], t2s[:, None, :]))
+    # fr orientation: the forward-strand mate starts no later than the
+    # reverse-strand mate
+    fwd1 = st1[:, :, None] == 0
+    fw_start = torch.where(fwd1, t1s[:, :, None], t2s[:, None, :])
+    rc_start = torch.where(fwd1, t2s[:, None, :], t1s[:, :, None])
+    ql = qlens.to(torch.int64)
+    ql1, ql2 = ql[0::2], ql[1::2]
+    # bowtie2's integer scMin per mate; a pair's is their sum, as the JAX
+    # package sums its two truncated float32 values
+    smin1, smin2 = smin_table[ql1], smin_table[ql2]
+    both_valid = ((s1 >= smin1[:, None].to(torch.float32))[:, :, None]
+                  & (s2 >= smin2[:, None].to(torch.float32))[:, None, :])
+    conc = (same_seq & opposite & (frag <= maxins) & (fw_start <= rc_start)
+            & both_valid)
+    pair_sc = torch.where(conc, s1[:, :, None] + s2[:, None, :], NEG_INF)
+
+    flat = pair_sc.reshape(Pn, C * C)
+    # canonical pair arbitration (see canonical_best_col): among
+    # equal-best concordant pairs the smallest (seq, t1start, t2start,
+    # strand1), so tie resolution is pool-order independent; the strand
+    # plane closes two equal-score pairings with identical coordinates
+    # and swapped mate strands
+    BIG = 2**31 - 1
+    isb = (flat == flat.amax(dim=1)[:, None]) & (flat > NEG_INF / 2)
+    shape = (Pn, C, C)
+    for plane in (seq1[:, :, None].expand(shape),
+                  t1s[:, :, None].expand(shape),
+                  t2s[:, None, :].expand(shape),
+                  st1[:, :, None].expand(shape)):
+        v = torch.where(isb, plane.reshape(Pn, C * C).to(torch.int32), BIG)
+        isb = isb & (v == v.amin(dim=1)[:, None])
+    # argmax over bool is not on every backend: over int32, first max
+    # (0 for a pair without a concordant combination: has_pair is False)
+    best_flat = torch.argmax(isb.to(torch.int32), dim=1)
+    pair_best = _pick(flat, best_flat)
+    masked = flat.clone()
+    masked[torch.arange(Pn, device=flat.device), best_flat] = NEG_INF
+    pair_second = masked.amax(dim=1)
+
+    # pair MAPQ from pair scores against pair-level score bounds
+    pair_mapq = mapq_device(pair_best, pair_second, smin1 + smin2,
+                            scoring.match * (ql1 + ql2).clamp(min=1),
+                            pair_second > NEG_INF / 2,
+                            local=scoring.mode == "local")
+    pair_col = torch.stack([best_flat // C, best_flat % C], dim=1).reshape(B)
+    return pair_best > NEG_INF / 2, pair_col, pair_mapq
+
+
+def paired_best_hit_device(
+    out: Dict[str, torch.Tensor], qlens: torch.Tensor, scoring: ScoringParams,
+    smin_table: torch.Tensor, maxins: int = 500,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mate-pair-aware best-hit selection (bowtie2 pairing semantics,
+    which the reference relies on at midas/run/genes.py:127-132 and
+    snps.py:109-114): rows 2i/2i+1 are mates of pair i.
+
+    Concordant candidate pairs — same target sequence, opposite
+    strands, forward-strand mate leftmost (fr orientation), fragment
+    span <= maxins (bowtie2 --maxins default 500) — are scored as
+    score1+score2; the best concordant pair fixes BOTH mates' columns
+    and both mates get a pair-level MAPQ (best vs second-best pair,
+    bowtie2 computes paired MAPQ from pair scores). Pairs with no
+    concordant combination fall back to independent per-mate best hits
+    (bowtie2's default mixed mode).
+
+    Known divergence from bowtie2 (documented AND measured): when a
+    concordant pair exists, it always wins here, even if one mate's
+    best UNPAIRED alignment elsewhere scores far higher — bowtie2
+    weighs concordant pairs against the mates' unpaired alignments
+    with an unpaired penalty. Quantified on an engineered
+    structural-variant library (tests/test_round5_fixes.py::
+    test_discordant_pair_divergence_quantified: mate 2 swapped to the
+    homologous locus of a 3%-divergent related genome in 7% of pairs):
+    59% of the chimeric mates (13/22, i.e. ~2% of all mates at that
+    chimera rate) are placed at the concordant locus where per-mate
+    best-hit picks the distant one; clean pairs are entirely
+    unaffected (pairing only ADDS mapped mates — +16% on that fixture
+    — by lifting multimapper MAPQ over the >=20 gate). On libraries
+    without structural variation the two policies pick the same pair.
+
+    The port reproduces this divergence; it does not fix it. smin_table
+    is score_min_table(scoring, max_len) on the device.
+
+    Returns (aligned [B] bool, best_col [B] int64, mapq [B] int32) —
+    the contract of best_hit_device, so every downstream filter is
+    unchanged."""
+    has_pair, pair_col, pair_mapq = concordant_pairs(
+        out, qlens, scoring, smin_table, maxins)
+    # unpaired fallback per mate (mixed mode)
+    u_aligned, u_col, u_mapq = best_hit_device(out, qlens, scoring,
+                                               smin_table)
+    has_pair_b = has_pair.repeat_interleave(2)
+    best_col = torch.where(has_pair_b, pair_col, u_col)
+    aligned = has_pair_b | u_aligned
+    mapq = torch.where(has_pair_b, pair_mapq.repeat_interleave(2), u_mapq)
     return aligned, best_col, mapq
 
 
@@ -374,17 +495,23 @@ def genes_init(num_genes: int, device) -> GenesState:
 
 def _two_pass_keep(index_arrays, pack_arrays, codes, quals, qlens,
                    mean_qual, n_reads, scoring, seed_params, max_len, mapid,
-                   readq, min_mapq, aln_cov, smin_table):
+                   readq, min_mapq, aln_cov, smin_table, paired):
     """The two-pass alignment of genes_update and snps_update: the
     score-only DP over every candidate (pass 1, K3 with qpen), the best
-    hit and its MAPQ, then the full-statistics DP over each read's chosen
-    candidate (pass 2, K2). Returns (out1, full, best_col, aligned,
-    keep); aligned and keep exclude padding rows."""
+    hit and its MAPQ — per read, or with paired per mate pair
+    (paired_best_hit_device, bowtie2's default --maxins 500) — then the
+    full-statistics DP over each read's chosen candidate (pass 2, K2).
+    Returns (out1, full, best_col, aligned, keep); aligned and keep
+    exclude padding rows."""
     out1, aux = align_candidates_score(index_arrays, pack_arrays, codes,
                                        qlens, scoring, seed_params, max_len,
                                        quals=quals)
-    aligned, best_col, mapq = best_hit_device(out1, qlens, scoring,
-                                              smin_table)
+    if paired:
+        aligned, best_col, mapq = paired_best_hit_device(
+            out1, qlens, scoring, smin_table)
+    else:
+        aligned, best_col, mapq = best_hit_device(out1, qlens, scoring,
+                                                  smin_table)
     full = align_chosen_full(pack_arrays, aux, codes, qlens, best_col,
                              scoring, seed_params)
     aligned &= torch.arange(codes.shape[0], device=codes.device) < n_reads
@@ -411,24 +538,21 @@ def genes_update(
     min_mapq: int,
     aln_cov: float,
     smin_table: torch.Tensor,    # score_min_table(scoring, max_len)
-    paired: bool = False,
+    paired: bool = False,        # rows 2i/2i+1 are mates
 ) -> GenesState:
     """One batch of CNV counting on the state's device, updating `state`
     in place (reference semantics: genes.py:153-203).
 
     Two-pass alignment: score-only DP over every candidate for selection
     and MAPQ (pass 1, K3), then the full-statistics DP over just each
-    read's chosen candidate (pass 2, K2). The three per-gene sums are
-    integer scatter-adds — exact in any order; slot G takes every read
-    that is not counted."""
-    if paired:
-        raise NotImplementedError(
-            "paired-end genes (mate pairing) is not yet ported to "
-            "midas_tpu_torch")
+    read's chosen candidate (pass 2, K2). With paired, rows 2i/2i+1 are
+    mates and the best concordant pair picks both (paired_best_hit_
+    device). The three per-gene sums are integer scatter-adds — exact
+    in any order; slot G takes every read that is not counted."""
     out1, full, best_col, aligned, keep = _two_pass_keep(
         index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
         scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
-        smin_table)
+        smin_table, paired)
     G = num_genes
     g = _pick(out1["seq_idx"], best_col)
     ones = torch.ones(codes.shape[0], dtype=torch.int32, device=codes.device)
@@ -543,7 +667,7 @@ def snps_update(
     baseq: int,
     aln_cov: float,
     smin_table: torch.Tensor,      # score_min_table(scoring, max_len)
-    paired: bool = False,
+    paired: bool = False,          # rows 2i/2i+1 are mates
 ) -> SnpsState:
     """One pileup batch on the state's device, updating `state` in place
     (reference semantics: snps.py:141-216). Gapless kept reads add their
@@ -553,16 +677,13 @@ def snps_update(
 
     Two-pass alignment, as genes_update: the score-only DP over every
     candidate (pass 1, K3 with qpen), then the full-statistics DP over
-    each read's chosen candidate (pass 2, K2). Every sum is an integer
-    scatter-add, exact in any order."""
-    if paired:
-        raise NotImplementedError(
-            "paired-end snps (mate pairing) is not yet ported to "
-            "midas_tpu_torch")
+    each read's chosen candidate (pass 2, K2), with paired per mate pair
+    as genes_update. Every sum is an integer scatter-add, exact in any
+    order."""
     out1, full, best_col, aligned, keep = _two_pass_keep(
         index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
         scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
-        smin_table)
+        smin_table, paired)
     B, L = codes.shape
     dev = codes.device
     # the genome length from the counts buffer, not the pack: the pack

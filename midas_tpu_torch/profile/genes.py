@@ -10,9 +10,11 @@ normalize by the median depth of the species' 15 marker genes
 <outdir>/genes/output/<sp>.genes.gz plus genes/summary.txt
 (write_results :220-245).
 
-Outputs equal midas_tpu's single-device path byte for byte (after
-decompression). Not yet ported: paired-end reads (-2, --interleaved)
-and multi-process runs.
+Reads are single-end, or mate pairs (-1/-2, --interleaved) whose best
+concordant pair fixes both mates' hits (device_steps.
+paired_best_hit_device). Outputs equal midas_tpu's single-device path
+byte for byte (after decompression). Not yet ported: multi-process
+runs.
 """
 
 from __future__ import annotations
@@ -31,8 +33,7 @@ from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.db.refpack import pack_from_fasta
 from midas_tpu_torch.io.seqio import iopen, parse_file
-from midas_tpu_torch.profile.common import (PAIRED_NOT_PORTED,
-                                            require_single_process,
+from midas_tpu_torch.profile.common import (require_single_process,
                                             resolve_species_list,
                                             select_batches)
 
@@ -102,17 +103,19 @@ class GenesProfiler:
         every batch) and come back once at the end — no per-batch
         readback. Batches parse and upload in a background thread; with
         checkpoint_path the state persists periodically (crash recovery
-        and the reference's --align / --call_genes stage split)."""
-        if paired or interleaved:
-            raise NotImplementedError(PAIRED_NOT_PORTED)
+        and the reference's --align / --call_genes stage split). With
+        paired, read_paths is [m1, m2], or [m1] with interleaved."""
         host = self._accumulate(read_paths, max_reads, trim, batch_size,
-                                checkpoint_path, read_length=read_length)
+                                checkpoint_path, paired=paired,
+                                interleaved=interleaved,
+                                read_length=read_length)
         if align_only:
             return None
         return self._finalize(host)
 
     def _accumulate(self, read_paths, max_reads, trim, batch_size,
                     checkpoint_path=None, checkpoint_every: int = 64,
+                    paired: bool = False, interleaved: bool = False,
                     read_length=None):
         from midas_tpu_torch.io.prefetch import prefetch_device_batches
         from midas_tpu_torch.profile import checkpoint as ckpt
@@ -128,6 +131,7 @@ class GenesProfiler:
         fp = None
         if checkpoint_path:
             fp = self._fingerprint(read_paths, max_reads, trim, batch_size,
+                                   paired=paired, interleaved=interleaved,
                                    read_length=read_length)
             got = ckpt.load(checkpoint_path, fp)
             if got is not None:
@@ -136,7 +140,8 @@ class GenesProfiler:
                 skip = int(meta["batches_done"])
         last_index = skip - 1
         batches = select_batches(read_paths, batch_size, al.max_read_len,
-                                 max_reads, read_length=read_length)
+                                 max_reads, paired, interleaved,
+                                 read_length=read_length)
         for db in prefetch_device_batches(
                 batches, ("codes", "quals", "lengths", "mean_qual"),
                 device=dev, skip_batches=skip, trim=trim):
@@ -148,7 +153,8 @@ class GenesProfiler:
                 scoring=al.scoring, seed_params=al.seed_params,
                 max_len=al.max_read_len, mapid=float(self.mapid),
                 readq=float(self.readq), min_mapq=int(self.mapq),
-                aln_cov=float(self.aln_cov), smin_table=smin_table)
+                aln_cov=float(self.aln_cov), smin_table=smin_table,
+                paired=bool(paired))
             if checkpoint_path and (db.index + 1) % checkpoint_every == 0:
                 ckpt.save(checkpoint_path, ds.genes_state_host(state),
                           dict(fingerprint=fp, batches_done=db.index + 1,
@@ -170,6 +176,7 @@ class GenesProfiler:
                     num_seqs=int(self.pack.num_seqs))
 
     def _fingerprint(self, read_paths, max_reads, trim, batch_size,
+                     paired=False, interleaved=False,
                      read_length=None) -> str:
         from midas_tpu_torch.profile import checkpoint as ckpt
 
@@ -179,7 +186,7 @@ class GenesProfiler:
             max_reads=max_reads, trim=trim, batch_size=batch_size,
             mapid=self.mapid, readq=self.readq, mapq=self.mapq,
             aln_cov=self.aln_cov, species=self.species_ids,
-            paired=False, interleaved=False,   # single-end only, as yet
+            paired=paired, interleaved=interleaved,
             read_length=read_length)
 
     def finalize_from_checkpoint(self, checkpoint_path,
@@ -280,13 +287,13 @@ def _marker_map_path(db: Database):
 
 def run_genes(args: Dict) -> Optional[GenesProfiler]:
     """The genes pipeline end to end, with the reference output layout
-    and per-stage timing/memory prints (genes.py:252-291). args["device"] picks the
-    device (default "cuda"). Single process, single-end reads."""
+    and per-stage timing/memory prints (genes.py:252-291). args["device"]
+    picks the device (default "cuda"). Single process; reads single-end
+    (-1), mate pairs (-1/-2) or interleaved mate pairs (-1 with
+    --interleaved)."""
     from midas_tpu_torch.io.batch import detect_max_read_len
     from midas_tpu_torch.utils import stage_timer
 
-    if args.get("m2") or args.get("interleaved"):
-        raise NotImplementedError(PAIRED_NOT_PORTED)
     require_single_process("genes")
     device = resolve_device(args.get("device") or "cuda")
     outdir = args["outdir"]
@@ -309,7 +316,7 @@ def run_genes(args: Dict) -> Optional[GenesProfiler]:
         return None
 
     state_path = os.path.join(outdir, "genes/temp/state.npz")
-    scan_paths = [p for p in (args.get("m1"),) if p]
+    scan_paths = [p for p in (args.get("m1"), args.get("m2")) if p]
     with stage_timer("Building pangenome database", log):
         profiler = GenesProfiler(
             db, species_ids,
@@ -322,9 +329,15 @@ def run_genes(args: Dict) -> Optional[GenesProfiler]:
             device=device,
         )
     if args.get("align") or args.get("build_db"):
+        paths = [args["m1"]]
+        if args.get("m2"):
+            paths.append(args["m2"])
+        paired = bool(args.get("m2")) or bool(args.get("interleaved"))
         with stage_timer("Aligning reads to pangenomes", log):
-            profiler.run([args["m1"]], max_reads=args.get("max_reads"),
+            profiler.run(paths, max_reads=args.get("max_reads"),
                          trim=args.get("trim", 0),
+                         paired=paired,
+                         interleaved=bool(args.get("interleaved")),
                          read_length=args.get("read_length"),
                          checkpoint_path=state_path,
                          align_only=not args.get("cov"))

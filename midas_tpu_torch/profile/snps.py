@@ -20,8 +20,9 @@ Outputs equal midas_tpu's single-device path byte for byte (after
 decompression) wherever the two gapped-read oracles agree: midas_tpu's
 batched oracle scores every mismatch with the flat penalty, this one
 with the per-base quality penalty, as the device DP does
-(align/oracle.py). Not yet ported: paired-end reads (-2, --interleaved)
-and multi-process runs.
+(align/oracle.py). Reads are single-end or mate pairs (-1/-2,
+--interleaved); pairing changes only which candidate each read takes.
+Not yet ported: multi-process runs.
 """
 
 from __future__ import annotations
@@ -41,8 +42,7 @@ from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.db.refpack import pack_from_fasta
 from midas_tpu_torch.io.seqio import CODE_TO_BASE, iopen
-from midas_tpu_torch.profile.common import (PAIRED_NOT_PORTED,
-                                            require_single_process,
+from midas_tpu_torch.profile.common import (require_single_process,
                                             resolve_species_list,
                                             select_batches)
 
@@ -105,11 +105,11 @@ class SnpsProfiler:
         get the exact oracle traceback once, after the stream. Batches
         parse and upload in a background thread; with checkpoint_path
         the state persists periodically (crash recovery and the
-        reference's --align / --pileup stage split)."""
-        if paired or interleaved:
-            raise NotImplementedError(PAIRED_NOT_PORTED)
+        reference's --align / --pileup stage split). With paired,
+        read_paths is [m1, m2], or [m1] with interleaved."""
         host = self._accumulate(read_paths, max_reads, trim, batch_size,
-                                gap_cap, checkpoint_path,
+                                gap_cap, checkpoint_path, paired=paired,
+                                interleaved=interleaved,
                                 read_length=read_length)
         if align_only:
             return None
@@ -117,7 +117,8 @@ class SnpsProfiler:
 
     def _accumulate(self, read_paths, max_reads, trim, batch_size,
                     gap_cap=None, checkpoint_path=None,
-                    checkpoint_every: int = 64, read_length=None) -> Dict:
+                    checkpoint_every: int = 64, paired: bool = False,
+                    interleaved: bool = False, read_length=None) -> Dict:
         from midas_tpu_torch.io.prefetch import prefetch_device_batches
         from midas_tpu_torch.profile import checkpoint as ckpt
         from midas_tpu_torch.profile import device_steps as ds
@@ -170,7 +171,7 @@ class SnpsProfiler:
 
         if checkpoint_path:
             fp = self._fingerprint(read_paths, max_reads, trim, batch_size,
-                                   cap, read_length)
+                                   cap, paired, interleaved, read_length)
             got = ckpt.load(checkpoint_path, fp)
             if got is not None:
                 arrays, meta = got
@@ -187,6 +188,7 @@ class SnpsProfiler:
         last_index = skip - 1
         rows_bound = 0   # worst-case spill rows since the last drain
         batches = select_batches(read_paths, batch_size, L, max_reads,
+                                 paired, interleaved,
                                  read_length=read_length)
         for db in prefetch_device_batches(
                 batches, ("codes", "quals", "lengths", "mean_qual"),
@@ -199,7 +201,8 @@ class SnpsProfiler:
                 scoring=al.scoring, seed_params=al.seed_params, max_len=L,
                 mapid=float(self.mapid), readq=float(self.readq),
                 min_mapq=int(self.mapq), baseq=int(self.baseq),
-                aln_cov=float(self.aln_cov), smin_table=smin_table)
+                aln_cov=float(self.aln_cov), smin_table=smin_table,
+                paired=bool(paired))
             rows_bound += db.n_reads
             if rows_bound > cap - batch_size:
                 drain()
@@ -217,6 +220,7 @@ class SnpsProfiler:
         return host
 
     def _fingerprint(self, read_paths, max_reads, trim, batch_size, cap,
+                     paired=False, interleaved=False,
                      read_length=None) -> str:
         from midas_tpu_torch.profile import checkpoint as ckpt
 
@@ -226,9 +230,8 @@ class SnpsProfiler:
             max_reads=max_reads, trim=trim, batch_size=batch_size,
             mapid=self.mapid, readq=self.readq, mapq=self.mapq,
             baseq=self.baseq, aln_cov=self.aln_cov, cap=cap,
-            species=self.species_ids, paired=False,
-            interleaved=False,   # single-end only, as yet
-            read_length=read_length)
+            species=self.species_ids, paired=paired,
+            interleaved=interleaved, read_length=read_length)
 
     def _guard(self) -> Dict:
         """Finalize-relevant parameters persisted in checkpoint meta (see
@@ -388,13 +391,12 @@ def _count_fasta_records(path: str) -> int:
 def run_snps(args: Dict) -> Optional[SnpsProfiler]:
     """The snps pipeline end to end, with the reference output layout and
     per-stage timing/memory prints (snps.py:268-305). args["device"]
-    picks the device (default "cuda"). Single process, single-end
-    reads."""
+    picks the device (default "cuda"). Single process; reads single-end
+    (-1), mate pairs (-1/-2) or interleaved mate pairs (-1 with
+    --interleaved)."""
     from midas_tpu_torch.io.batch import detect_max_read_len
     from midas_tpu_torch.utils import stage_timer
 
-    if args.get("m2") or args.get("interleaved"):
-        raise NotImplementedError(PAIRED_NOT_PORTED)
     require_single_process("snps")
     device = resolve_device(args.get("device") or "cuda")
     outdir = args["outdir"]
@@ -412,7 +414,7 @@ def run_snps(args: Dict) -> Optional[SnpsProfiler]:
         return None
 
     state_path = os.path.join(outdir, "snps/temp/state.npz")
-    scan_paths = [p for p in (args.get("m1"),) if p]
+    scan_paths = [p for p in (args.get("m1"), args.get("m2")) if p]
     with stage_timer("Building genome database", log):
         profiler = SnpsProfiler(
             db, species_ids,
@@ -426,9 +428,15 @@ def run_snps(args: Dict) -> Optional[SnpsProfiler]:
             device=device,
         )
     if args.get("align") or args.get("build_db"):
+        paths = [args["m1"]]
+        if args.get("m2"):
+            paths.append(args["m2"])
+        paired = bool(args.get("m2")) or bool(args.get("interleaved"))
         with stage_timer("Aligning reads to representative genomes", log):
-            profiler.run([args["m1"]], max_reads=args.get("max_reads"),
+            profiler.run(paths, max_reads=args.get("max_reads"),
                          trim=args.get("trim", 0),
+                         paired=paired,
+                         interleaved=bool(args.get("interleaved")),
                          read_length=args.get("read_length"),
                          checkpoint_path=state_path,
                          align_only=not args.get("call"))

@@ -249,11 +249,19 @@ def test_genes_update_batch_equal(genes_profiler, sim_reads):
     back = tds.genes_state_host(tds.genes_state_restore(got, "cpu"))
     for k in got:
         np.testing.assert_array_equal(back[k], got[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tds.genes_update(tstate, tal.index_arrays, tal.pack_arrays, G,
-                         None, None, None, None, 0, scoring=tsc,
-                         seed_params=tal.seed_params, max_len=128,
-                         smin_table=None, paired=True, **kw)
+    # the same rows as mate pairs (2i, 2i+1) now run (the paired step is
+    # held to midas_tpu's in tests/test_torch_paired.py)
+    pstate = tds.genes_init(G, "cpu")
+    tds.genes_update(
+        pstate, tal.index_arrays, tal.pack_arrays, G,
+        torch.from_numpy(b.codes), torch.from_numpy(b.quals),
+        torch.from_numpy(b.lengths), torch.from_numpy(b.mean_qual), n_reads,
+        scoring=tsc, seed_params=tal.seed_params, max_len=128,
+        smin_table=torch.from_numpy(tds.score_min_table(tsc, 128)),
+        paired=True, **kw)
+    paired = tds.genes_state_host(pstate)
+    assert paired["aligned_reads"].sum() == b.codes.shape[0]
+    assert paired["mapped_reads"][:G].sum() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +378,15 @@ def test_checkpoint_resume_and_call_genes_only(genes_runs, sim_community,
 
 def test_paired_and_multi_process_not_yet_ported(sim_community, sim_reads,
                                                  tmp_path, monkeypatch):
-    base = ["genes", str(tmp_path / "o"), "-1", sim_reads[0], "-d",
-            sim_community.db_dir, "--species_id",
-            sim_community.species[0].species_id, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_run_midas(base + ["-2", sim_reads[0]])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_run_midas(base + ["--interleaved"])
+    """Paired reads (-2, --interleaved) now run; multi-process runs are
+    still not ported and raise."""
+    for i, extra in enumerate((["-2", sim_reads[0]], ["--interleaved"])):
+        out = str(tmp_path / f"o{i}")
+        t_run_midas(["genes", out, "-1", sim_reads[0], "-d",
+                     sim_community.db_dir, "--species_id",
+                     sim_community.species[0].species_id, "-n", "4",
+                     "--device", "cpu"] + extra)
+        assert os.path.isfile(os.path.join(out, "genes/summary.txt"))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         t_run_genes(dict(outdir=str(tmp_path / "p"), db=sim_community.db_dir,

@@ -254,11 +254,20 @@ def test_snps_update_batch_equal(jax_snps_profilers, indel_reads, mode):
     back = tds.snps_state_host(tds.snps_state_restore(got, cap, "cpu"))
     for k in got:
         np.testing.assert_array_equal(back[k], got[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tds.snps_update(tstate, tal.index_arrays, tal.pack_arrays, None,
-                        None, None, None, None, 0, scoring=tsc,
-                        seed_params=tal.seed_params, max_len=128,
-                        smin_table=None, paired=True, **kw)
+    # the same rows as mate pairs (2i, 2i+1) now run (the paired step is
+    # held to midas_tpu's in tests/test_torch_paired.py)
+    pstate = tds.snps_init(G, S, cap, 128, "cpu")
+    tds.snps_update(
+        pstate, tal.index_arrays, tal.pack_arrays,
+        torch.from_numpy(jprof.contig_species.astype(np.int64)),
+        torch.from_numpy(b.codes), torch.from_numpy(b.quals),
+        torch.from_numpy(b.lengths), torch.from_numpy(b.mean_qual), n_reads,
+        scoring=tsc, seed_params=tal.seed_params, max_len=128,
+        smin_table=torch.from_numpy(tds.score_min_table(tsc, 128)),
+        paired=True, **kw)
+    paired = tds.snps_state_host(pstate)
+    assert paired["aligned_reads"].sum() == b.codes.shape[0]
+    assert paired["mapped_reads"][:S].sum() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -447,18 +456,20 @@ def test_checkpoint_resume_and_pileup_only(snps_runs, sim_community,
 
 def test_paired_and_multi_process_not_yet_ported(sim_community, indel_reads,
                                                  tmp_path, monkeypatch):
+    """Paired reads (-2, --interleaved, paired=True) now run;
+    multi-process runs are still not ported and raise."""
     fq = indel_reads[1]
     sid = sim_community.species[0].species_id
-    base = ["snps", str(tmp_path / "o"), "-1", fq, "-d",
-            sim_community.db_dir, "--species_id", sid, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_run_midas(base + ["-2", fq])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_run_midas(base + ["--interleaved"])
+    for i, extra in enumerate((["-2", fq], ["--interleaved"])):
+        out = str(tmp_path / f"o{i}")
+        t_run_midas(["snps", out, "-1", fq, "-d", sim_community.db_dir,
+                     "--species_id", sid, "-n", "4", "--device", "cpu"]
+                    + extra)
+        assert os.path.isfile(os.path.join(out, "snps/summary.txt"))
     prof = TSnpsProfiler(TDatabase(sim_community.db_dir), [sid],
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        prof.run([fq], paired=True)
+    got = prof.run([fq], max_reads=4, batch_size=64, paired=True)
+    assert got["aligned_reads"].sum() <= 8
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="multi-process snps"):
         t_run_snps(dict(outdir=str(tmp_path / "p"), db=sim_community.db_dir,
