@@ -115,6 +115,38 @@ profiler and phase 11's snps profiler are on the card):
              file and the saved state must be identical, and the CPU
              runs launch nothing.
 
+The m8 and merge phases:
+
+19. species_m8   — SpeciesProfiler.run(m8_path=...) right after phase 5,
+             on the same profiler and reads: the host classifier over
+             each batch's read-back alignments and the BLAST outfmt-6
+             writer. Checked: K1 once a batch, the main phase's
+             abundance and stats exactly, the first batch's align_batch
+             planes equal to those of the plain DP on the same pairs (and
+             K1 held to the plain version there: species_m8_kernels).
+             Reads/s beside the main phase's, the readback's bytes and ms
+             a batch, the host seconds of loading, align_batch, the
+             classifier, the m8 writer and the assignment, the m8 rows
+             and bytes.
+20. m8_cli       — `run_midas species --m8 -n 2048` on the card and on the
+             CPU: species_profile.txt, read_count.txt and alignments.m8
+             identical, and no temp/state.npz.
+21. merge_cli    — three samples of a small community (the tests'
+             sim_community and three_samples mixtures, 2,048 reads each)
+             through `run_midas species`, `genes`, `snps` on the card and
+             on the CPU, then `merge_midas species`, `genes`, `snps`
+             (default, and --all_sites --all_samples) over each set: the
+             merged trees identical.
+22. merge_main   — four samples (163,840 x 100 bp reads each, ~5.5x) of
+             the repgenome-10sp cell's first 3 Mb species, the fourth
+             with variants, each through `run_midas snps --species_id` on
+             the card, then `merge_midas snps` at its defaults (the
+             --core_snps filters, --sample_depth 5), checked against a
+             plain numpy recount from the four .snps.gz files (kept
+             samples, sites, major and minor alleles, pooled counts,
+             per-sample depths). Seconds of each stage, and the merge's
+             seconds per million sites.
+
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
@@ -123,8 +155,8 @@ pass 2, genes launches), banded_sw_template (the template kernel,
 timed on the above-the-limit check, launched on no path),
 banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
 launches) and banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2,
-snps launches), each with every path's launches (the paired paths'
-among them), and as the last line
+snps launches), each with every path's launches (the paired, m8 and
+merge paths' among them), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -526,7 +558,8 @@ def phase_main(prof, fq, truth):
          stage_ms=stages, max_memory_allocated=peak, counted_reads=counted,
          counted_in_abundant=in_first, truth_reads_abundant=truth_first,
          stray_reads=stray, total_alns=prof.stats["total_alns"])
-    return launches
+    return dict(launches=launches, abundance=abundance,
+                stats=dict(prof.stats), reads_per_sec=N_READS / dt)
 
 
 def _device_step(prof, fq):
@@ -577,6 +610,22 @@ def _device_step(prof, fq):
     return step_ms, r
 
 
+def _same_files(a, b, files, what):
+    """Fail unless the files (paths relative to a and b) hold the same
+    bytes; .gz files are compared decompressed."""
+    import gzip
+
+    for f in files:
+        op = gzip.open if f.endswith(".gz") else open
+        with op(os.path.join(a, f), "rb") as x, op(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"{what}: {f} differs")
+
+
+M8_OUTPUTS = ("species/species_profile.txt", "species/temp/read_count.txt",
+              "species/temp/alignments.m8")
+
+
 def phase_cpu_vs_card(comm, fq):
     from midas_tpu_torch.cli.run_midas import main as run_midas
 
@@ -588,17 +637,450 @@ def phase_cpu_vs_card(comm, fq):
                    "-n", str(N_CPU_READS), "--device", dev])
         outs[dev] = (out, time.time() - t0)
     (card, t_card), (cpu, t_cpu) = outs["cuda"], outs["cpu"]
-    for f in ("species/species_profile.txt", "species/temp/read_count.txt"):
-        with open(os.path.join(card, f), "rb") as a, \
-                open(os.path.join(cpu, f), "rb") as b:
-            if a.read() != b.read():
-                fail(f"card and CPU differ in {f}")
+    _same_files(card, cpu, M8_OUTPUTS[:2], "species, card vs CPU")
     keys, za = _same_state(os.path.join(card, "species/temp/state.npz"),
                            os.path.join(cpu, "species/temp/state.npz"),
                            "card and CPU SpeciesState")
     emit("cpu", reads=N_CPU_READS, identical=True, state_fields=keys,
          amb_rows=int(za["amb_n"]), card_seconds=round(t_card, 2),
          cpu_seconds=round(t_cpu, 2))
+
+
+def _plain_dp(q, ql, win, scoring, band_width=16, qpen=None,
+              score_only=False):
+    """A stand-in for cuda_sw.banded_align_cuda that runs the plain
+    PyTorch version on the same (card) tensors."""
+    from midas_tpu_torch.align.banded import banded_align_plain
+
+    return banded_align_plain(q, ql, win, scoring, band_width, qpen=qpen,
+                              score_only=score_only)
+
+
+def phase_species_m8(prof, fq, main, smi_line):
+    """SpeciesProfiler.run with an m8 path (the host classifier over each
+    batch's read-back alignments, the BLAST outfmt-6 writer) over the
+    main phase's reads on the same profiler. Checked: K1 once a batch,
+    the main phase's abundance and stats exactly, and the first batch's
+    align_batch planes equal to those of the plain DP on the same pairs.
+    Host stages are timed by wrapping them here, without editing the
+    package. Returns (launches, the K1 record on this path's batch)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align import pipeline as pl
+    from midas_tpu_torch.io.batch import load_read_batches
+    from midas_tpu_torch.profile import species as species_mod
+
+    out_dir = os.path.join(WORK, "species_m8")
+    os.makedirs(out_dir, exist_ok=True)
+    m8 = os.path.join(out_dir, "alignments.m8")
+    prof.run([fq], max_reads=BATCH, batch_size=BATCH, m8_path=m8)  # warm-up
+    torch.cuda.synchronize()
+    n_batches = -(-N_READS // BATCH)
+    secs = dict(load=0.0, align_batch=0.0, write_m8=0.0, run_host=0.0)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[key] += time.perf_counter() - t
+        return wrapper
+
+    real_load = species_mod.load_read_batches
+
+    def timed_load(*a, **k):
+        it = iter(real_load(*a, **k))
+        while True:
+            t = time.perf_counter()
+            b = next(it, None)
+            secs["load"] += time.perf_counter() - t
+            if b is None:
+                return
+            yield b
+
+    al = prof.aligner
+    al.align_batch = timed("align_batch", al.align_batch)   # ends in .cpu()
+    prof._write_m8 = timed("write_m8", prof._write_m8)
+    prof._run_host = timed("run_host", prof._run_host)
+    species_mod.load_read_batches = timed_load
+    try:
+        cuda_sw.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        abundance = prof.run([fq], batch_size=BATCH, m8_path=m8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cuda_sw.LAUNCHES)
+    finally:
+        species_mod.load_read_batches = real_load
+        del al.align_batch, prof._write_m8, prof._run_host
+    if launches != {"K1": n_batches}:
+        fail(f"m8 path launched banded_sw {launches} for {n_batches} "
+             "batches (want K1 only, once per batch)")
+    if abundance != main["abundance"]:
+        fail("m8 path's abundance differs from the main (device) path's")
+    if prof.stats != main["stats"]:
+        fail(f"m8 path's stats {prof.stats} differ from the main path's "
+             f"{main['stats']}")
+
+    # the first batch: align_batch with the kernel against align_batch
+    # with the plain DP on the same pairs, plane by plane
+    b = next(iter(load_read_batches([fq], batch_size=BATCH,
+                                    max_len=al.max_read_len)))
+    ((p, k),) = _captured_dp_calls(lambda: al.align_batch(b))
+    got = al.align_batch(b)
+    real = cuda_sw.banded_align_cuda
+    cuda_sw.banded_align_cuda = _plain_dp
+    try:
+        want = al.align_batch(b)
+    finally:
+        cuda_sw.banded_align_cuda = real
+    for f in al._PACK_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"m8 path's first batch: align_batch plane {f} differs "
+                 "from the plain DP's")
+    variant = _check_variant("K1", "marker", al.scoring, *p[:3], k["qpen"],
+                             k["score_only"], cuda_sw.packed_layout(),
+                             shape="m8 path batch")
+    variant.pop("_out")
+    emit("species_m8_kernels", **variant)
+
+    # the readback alone: the 12 planes packed and copied to the host
+    codes = torch.from_numpy(b.codes).cuda()
+    qlens = torch.from_numpy(b.lengths).cuda()
+    dev_out = al.align_batch_device(codes, qlens)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        packed = pl._pack_result(dev_out).cpu()
+    readback_ms = (time.perf_counter() - t) / 10 * 1e3
+    with open(m8, "rb") as f:
+        m8_bytes = f.read()
+    host = dict(load=secs["load"], align_batch=secs["align_batch"],
+                write_m8=secs["write_m8"],
+                classifier=secs["run_host"] - secs["load"]
+                - secs["align_batch"] - secs["write_m8"],
+                assign_and_normalize=dt - secs["run_host"])
+    emit("species_m8", reads=N_READS, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=N_READS / dt,
+         main_reads_per_sec=main["reads_per_sec"],
+         banded_sw_launches=launches,
+         readback_bytes_per_batch=packed.numel() * packed.element_size(),
+         readback_ms_per_batch=readback_ms,
+         align_batch_ms_per_batch=secs["align_batch"] / n_batches * 1e3,
+         host_seconds=host, m8_rows=m8_bytes.count(b"\n"),
+         m8_bytes=len(m8_bytes), abundance_equal_main=True,
+         stats_equal_main=True, stats=prof.stats,
+         first_batch_equal_plain=True, card=smi_line)
+    return launches, variant
+
+
+def phase_m8_cli(comm, fq, smi_line):
+    """`run_midas species --m8 -n 2048` through the CLI on the card and on
+    the CPU: species_profile.txt, read_count.txt and alignments.m8 equal
+    byte for byte, no temp/state.npz, K1 once on the card and nothing on
+    the CPU. Returns the card run's launches."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    outs, secs, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = out = os.path.join(WORK, f"m8_cli_{dev}")
+        cuda_sw.LAUNCHES.clear()
+        t0 = time.time()
+        run_midas(["species", out, "-1", fq, "-d", comm.db_dir,
+                   "-n", str(N_CPU_READS), "--m8", "--device", dev])
+        secs[dev] = round(time.time() - t0, 2)
+        launches[dev] = dict(cuda_sw.LAUNCHES)
+        if os.path.exists(os.path.join(out, "species/temp/state.npz")):
+            fail(f"run_midas species --m8 ({dev}) wrote temp/state.npz")
+    if launches != {"cuda": {"K1": -(-N_CPU_READS // 8192)}, "cpu": {}}:
+        fail(f"run_midas species --m8 launched {launches}")
+    _same_files(outs["cuda"], outs["cpu"], M8_OUTPUTS,
+                "species --m8, card vs CPU")
+    with open(os.path.join(outs["cuda"], M8_OUTPUTS[2]), "rb") as f:
+        rows = f.read().count(b"\n")
+    if rows < N_CPU_READS // 4:
+        fail(f"run_midas species --m8 wrote {rows} m8 rows")
+    emit("m8_cli", reads=N_CPU_READS, identical=True, m8_rows=rows,
+         card_launches=launches["cuda"], seconds=secs, card=smi_line)
+    return launches["cuda"]
+
+
+# the merge_cli cohort: tests/conftest.py's sim_community and its
+# three_samples mixtures (the third sample carries variants)
+MERGE_CLI_DB = dict(n_species=3, genome_len=12000, gene_len=600,
+                    n_extra_genes=4, related_pairs=1, divergence=0.03, seed=0)
+MERGE_CLI_MIXES = ([0.5, 0.3, 0.15, 0.05], [0.2, 0.5, 0.2, 0.1],
+                   [0.4, 0.4, 0.1, 0.1])
+
+
+def _tree_bytes(root):
+    """{path relative to root: bytes} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def phase_merge_cli(smi_line):
+    """Three samples of a small community through `run_midas species`,
+    `genes` and `snps` (2,048 reads each), on the card and then on the
+    CPU, then `merge_midas species`, `genes`, `snps` (the default
+    --core_snps, and --all_sites --all_samples) over each set: the merged
+    trees must be equal byte for byte. Returns the card runs' launches."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.merge_midas import main as merge_midas
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+    from midas_tpu_torch.testkit.simulate import simulate_db, simulate_reads
+
+    root = os.path.join(WORK, "merge_cli")
+    comm = simulate_db(os.path.join(root, "db"), **MERGE_CLI_DB)
+    reads = []
+    for i, mix in enumerate(MERGE_CLI_MIXES):
+        fq = os.path.join(root, f"reads{i}.fq.gz")
+        simulate_reads(comm, fq, n_reads=N_CPU_READS, abundances=mix,
+                       variant_rate=0.02 if i == 2 else 0.0,
+                       error_rate=0.005 if i == 2 else 0.0, seed=10 + i)
+        reads.append(fq)
+    db = comm.db_dir
+    merges = (("species", []), ("genes", []), ("snps", []),
+              ("snps", ["--all_sites", "--all_samples"]))
+    trees, secs, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        dirs = [os.path.join(root, dev, f"sample{i}") for i in range(3)]
+        cuda_sw.LAUNCHES.clear()
+        t0 = time.time()
+        for d, fq in zip(dirs, reads):
+            base = [d, "-1", fq, "-d", db, "--device", dev]
+            run_midas(["species", *base])
+            run_midas(["genes", *base, "--species_cov", "0.1"])
+            run_midas(["snps", *base, "--species_cov", "0.1"])
+        secs[f"run_midas_{dev}"] = round(time.time() - t0, 2)
+        launches[dev] = dict(cuda_sw.LAUNCHES)
+        t0 = time.time()
+        for mi, (program, flags) in enumerate(merges):
+            out = os.path.join(root, dev, f"merged_{mi}_{program}")
+            merge_midas([program, out, "-i", ",".join(dirs), "-t", "list",
+                         "-d", db, *flags])
+            trees[dev, mi] = _tree_bytes(out)
+        secs[f"merge_midas_{dev}"] = round(time.time() - t0, 2)
+    if launches["cpu"] or not all(launches["cuda"].get(k)
+                                  for k in ("K1", "K3_qpen", "K2")):
+        fail(f"merge_cli's per-sample runs launched {launches}")
+    files, rows = 0, {}
+    for mi, (program, flags) in enumerate(merges):
+        a, b = trees["cuda", mi], trees["cpu", mi]
+        if a != b:
+            diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+            fail(f"merge_midas {program} {flags}: card and CPU sample sets "
+                 f"merge differently in {diff[:5]}")
+        files += len(a)
+        rows[" ".join([program, *flags])] = sum(
+            v.count(b"\n") - 1 for k, v in a.items()
+            if k.endswith(("count_reads.txt", "genes_copynum.txt",
+                           "snps_freq.txt")))
+    if not all(v for k, v in rows.items() if k != "snps"):
+        fail(f"merge_cli merged no data: {rows}")
+    emit("merge_cli", samples=3, reads_per_sample=N_CPU_READS,
+         identical=True, merged_files=files, data_rows=rows,
+         card_launches=launches["cuda"], seconds=secs, card=smi_line)
+    return launches["cuda"]
+
+
+# the merge_main cell: four samples of one of the repgenome-10sp cell's
+# 3 Mb species at ~5.5x (163,840 x 100 bp reads each), the fourth with
+# biological variants; merge_midas snps at its defaults (--core_snps,
+# --sample_depth 5)
+MERGE_SAMPLES, MERGE_READS = 4, 163840
+MERGE_SIM = dict(read_len=100, error_rate=0.005, indel_rate=0.01)
+
+
+def _simulate_sample(args):
+    """One merge_main sample's reads (run in a worker process)."""
+    from midas_tpu_torch.testkit.simulate import simulate_reads
+
+    comm, fq, n_reads, abundances, variant_rate, seed = args
+    simulate_reads(comm, fq, n_reads=n_reads, abundances=abundances,
+                   variant_rate=variant_rate, seed=seed, **MERGE_SIM)
+    return fq
+
+
+def _read_snps_gz(path):
+    """(lines without the header, [N, 5] int64 depth and A/C/G/T counts)
+    of one .snps.gz file, parsed here without merge/snps.py."""
+    import gzip
+
+    with gzip.open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    if lines[-1] != b"" or not lines[0].startswith(b"ref_id\t"):
+        fail(f"{path}: not a .snps.gz table")
+    lines = lines[1:-1]
+    nums = np.fromstring(b"\t".join(ln.split(b"\t", 3)[3] for ln in lines),
+                         sep="\t", dtype=np.int64)
+    return lines, nums.reshape(len(lines), 5)
+
+
+def _read_table(path):
+    with open(path) as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f]
+    return rows[0], rows[1:]
+
+
+def snps_recount(sample_dirs, sp, sample_depth=5.0, fract_cov=0.4,
+                 allele_freq=0.01, site_depth=1, site_ratio=2.0,
+                 site_prev=0.95):
+    """merge_midas snps' core-genome call at its default filters,
+    recounted from the samples' .snps.gz files and summary.txt in plain
+    numpy: the kept samples, then per site the pooled allele counts,
+    major and minor allele (the larger count first, A/C/G/T order on
+    ties), each sample's depth (major + minor reads) and the sites that
+    pass. Returns a dict of the passing sites' fields."""
+    kept, mean_cov = [], []
+    for d in sample_dirs:
+        head, rows = _read_table(os.path.join(d, "snps/summary.txt"))
+        r = dict(zip(head, next(row for row in rows if row[0] == sp)))
+        if (float(r["mean_coverage"]) >= sample_depth
+                and float(r["fraction_covered"]) >= fract_cov):
+            kept.append(d)
+            mean_cov.append(float(r["mean_coverage"]))
+    lines = None
+    counts = []
+    for d in kept:
+        ls, nums = _read_snps_gz(os.path.join(d, "snps/output",
+                                              f"{sp}.snps.gz"))
+        if not np.array_equal(nums[:, 0], nums[:, 1:].sum(axis=1)):
+            fail(f"{d}: depth is not the sum of the four counts")
+        lines = lines if lines is not None else ls
+        if len(ls) != len(lines):
+            fail(f"{d}: {len(ls)} sites, not {len(lines)}")
+        counts.append(nums[:, 1:])
+    counts = np.stack(counts)                        # [S, N, 4]
+    pooled = counts.sum(axis=0)                      # [N, 4]
+    total = pooled.sum(axis=1)
+    rows = np.arange(len(total))
+    major = pooled.argmax(axis=1)                    # first of equal counts
+    rest = pooled.copy()
+    rest[rows, major] = -1
+    minor = rest.argmax(axis=1)
+    has_major = pooled[rows, major] > 0
+    has_minor = pooled[rows, minor] > 0
+    freq = pooled / np.maximum(total, 1)[:, None]
+    n_alleles = ((freq >= allele_freq) & (total > 0)[:, None]).sum(axis=1)
+    maj_n = counts[:, rows, major]
+    min_n = np.where(has_minor[None, :], counts[:, rows, minor], 0)
+    depth = np.where(has_major[None, :], maj_n + min_n, 0)   # [S, N]
+    ok = (depth >= site_depth) & (
+        depth / np.asarray(mean_cov)[:, None] <= site_ratio)
+    count_samples = ok.sum(axis=0)
+    passing = (count_samples / len(kept) >= site_prev) & (n_alleles == 2)
+    idx = np.flatnonzero(passing)
+    return dict(samples=[os.path.basename(d) for d in kept],
+                site_id=idx + 1, major=major[idx], minor=minor[idx],
+                pooled=pooled[idx], depth=depth[:, idx],
+                count_samples=count_samples[idx],
+                ref=[lines[i].split(b"\t", 2)[:2] for i in idx],
+                n_sites=len(lines))
+
+
+def _check_merged_snps(merged_sp_dir, want):
+    """Fail unless merge_midas snps' snps_info.txt and snps_depth.txt
+    hold the recount's sites, alleles, pooled counts and depths."""
+    head, info = _read_table(os.path.join(merged_sp_dir, "snps_info.txt"))
+    dhead, depth = _read_table(os.path.join(merged_sp_dir, "snps_depth.txt"))
+    if dhead[1:] != want["samples"]:
+        fail(f"merged samples {dhead[1:]} != recount's {want['samples']}")
+    col = {h: i for i, h in enumerate(head)}
+    got = dict(
+        site_id=np.array([int(r[0]) for r in info], dtype=np.int64),
+        major=np.array(["ACGT".index(r[col["major_allele"]]) for r in info]),
+        minor=np.array(["ACGT".index(r[col["minor_allele"]]) for r in info]),
+        pooled=np.array([[int(r[col[f"count_{a}"]]) for a in "acgt"]
+                         for r in info], dtype=np.int64).reshape(-1, 4),
+        count_samples=np.array([int(r[col["count_samples"]]) for r in info]),
+        depth=np.array([[int(x) for x in r[1:]] for r in depth],
+                       dtype=np.int64).reshape(-1, len(dhead) - 1).T,
+        ref=[[r[col["ref_id"]].encode(), r[col["ref_pos"]].encode()]
+             for r in info])
+    if [int(r[0]) for r in depth] != list(got["site_id"]):
+        fail("snps_depth.txt and snps_info.txt list different sites")
+    for k in ("site_id", "major", "minor", "pooled", "count_samples",
+              "depth"):
+        if not np.array_equal(got[k], want[k]):
+            fail(f"merged snps differ from the numpy recount in {k} "
+                 f"({len(got['site_id'])} sites merged, "
+                 f"{len(want['site_id'])} recounted)")
+    if got["ref"] != want["ref"]:
+        fail("merged snps differ from the numpy recount in ref_id/ref_pos")
+
+
+def phase_merge_main(gcomm, smi_line):
+    """merge_midas snps at a user's scale: four samples of the
+    repgenome-10sp cell's first species (3 Mb), each through `run_midas
+    snps --species_id <sp>` on the card, then `merge_midas snps` at its
+    defaults, checked against snps_recount. Emits each stage's seconds
+    and the merge's seconds per million sites. Returns the per-sample
+    runs' launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.merge_midas import main as merge_midas
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    root = os.path.join(WORK, "merge_main")
+    os.makedirs(root, exist_ok=True)
+    sp = gcomm.species[0].species_id
+    abund = [1.0] + [0.0] * (len(gcomm.species) - 1)
+    jobs = [(gcomm, os.path.join(root, f"reads{i}.fq.gz"), MERGE_READS, abund,
+             0.02 if i == MERGE_SAMPLES - 1 else 0.0, 20 + i)
+            for i in range(MERGE_SAMPLES)]
+    secs = {}
+    t0 = time.time()
+    with ProcessPoolExecutor(MERGE_SAMPLES, mp_context=multiprocessing.get_context(
+            "spawn")) as ex:
+        reads = list(ex.map(_simulate_sample, jobs))
+    secs["simulate"] = time.time() - t0
+    dirs = [os.path.join(root, f"sample{i}") for i in range(MERGE_SAMPLES)]
+    cuda_sw.LAUNCHES.clear()
+    run_s = []
+    for d, fq in zip(dirs, reads):
+        t0 = time.time()
+        run_midas(["snps", d, "-1", fq, "-d", gcomm.db_dir, "--species_id",
+                   sp])
+        run_s.append(time.time() - t0)
+    launches = dict(cuda_sw.LAUNCHES)
+    n_b = MERGE_SAMPLES * -(-MERGE_READS // BATCH)
+    if launches != {"K3_qpen": n_b, "K2": n_b}:
+        fail(f"merge_main's run_midas snps launched {launches} for {n_b} "
+             "batches")
+    secs["run_midas_snps"] = run_s
+    merged = os.path.join(root, "merged")
+    t0 = time.time()
+    merge_midas(["snps", merged, "-i", ",".join(dirs), "-t", "list",
+                 "-d", gcomm.db_dir])
+    secs["merge_midas_snps"] = time.time() - t0
+    t0 = time.time()
+    want = snps_recount(dirs, sp)
+    secs["recount"] = time.time() - t0
+    if len(want["samples"]) != MERGE_SAMPLES or len(want["site_id"]) == 0:
+        fail(f"merge_main: the recount keeps {len(want['samples'])} samples "
+             f"and {len(want['site_id'])} sites")
+    _check_merged_snps(os.path.join(merged, sp), want)
+    head, rows = _read_table(os.path.join(merged, sp, "snps_summary.txt"))
+    emit("merge_main", species=sp, samples=MERGE_SAMPLES,
+         reads_per_sample=MERGE_READS, genome_sites=want["n_sites"],
+         coverage=[float(r[head.index("mean_coverage")]) for r in rows],
+         merged_sites=len(want["site_id"]), equal_to_recount=True,
+         banded_sw_launches=launches, seconds=secs,
+         merge_seconds_per_million_sites=secs["merge_midas_snps"]
+         / (want["n_sites"] / 1e6), card=smi_line)
+    return launches
 
 
 def phase_genes_data():
@@ -894,15 +1376,9 @@ def _genes_device_step(prof, fq):
 def _same_genes_outputs(a, b, what):
     """Fail unless two genes output directories hold the same
     summary.txt, decompressed .genes.gz files and saved state."""
-    import gzip
-
-    for f in ["genes/summary.txt", "genes/species.txt"] + sorted(
-            os.path.join("genes/output", n)
-            for n in os.listdir(os.path.join(a, "genes/output"))):
-        op = gzip.open if f.endswith(".gz") else open
-        with op(os.path.join(a, f), "rb") as x, op(os.path.join(b, f), "rb") as y:
-            if x.read() != y.read():
-                fail(f"{what}: {f} differs")
+    _same_files(a, b, ["genes/summary.txt", "genes/species.txt"] + sorted(
+        os.path.join("genes/output", n)
+        for n in os.listdir(os.path.join(a, "genes/output"))), what)
     keys, za = _same_state(os.path.join(a, "genes/temp/state.npz"),
                            os.path.join(b, "genes/temp/state.npz"),
                            f"{what}: GenesState")
@@ -1229,17 +1705,11 @@ def _same_snps_outputs(a, b, what):
     """Fail unless two snps output directories hold the same
     summary.txt, species list, decompressed .snps.gz files and saved
     state."""
-    import gzip
-
     names = sorted(os.listdir(os.path.join(a, "snps/output")))
     if names != sorted(os.listdir(os.path.join(b, "snps/output"))):
         fail(f"{what}: different output files")
-    for f in ["snps/summary.txt", "snps/species.txt"] + [
-            os.path.join("snps/output", n) for n in names]:
-        op = gzip.open if f.endswith(".gz") else open
-        with op(os.path.join(a, f), "rb") as x, op(os.path.join(b, f), "rb") as y:
-            if x.read() != y.read():
-                fail(f"{what}: {f} differs")
+    _same_files(a, b, ["snps/summary.txt", "snps/species.txt"] + [
+        os.path.join("snps/output", n) for n in names], what)
     keys, za = _same_state(os.path.join(a, "snps/temp/state.npz"),
                            os.path.join(b, "snps/temp/state.npz"),
                            f"{what}: SnpsState")
@@ -1452,10 +1922,12 @@ def kernels_line(variants, by_path, smi_line):
     banded_sw_k2 (K2, packed, at genes pass 2) — and banded_sw_template
     (the template kernel, on the above-the-limit check, on no path).
     Marks each variant record with its path and that path's launches
-    (the paired paths' records, "paired genes / snps pass 1 / 2", sit in
-    their kernels' variants)."""
+    (the paired paths' records, "paired genes / snps pass 1 / 2", and the
+    m8 path's K1 record, "m8 path batch", sit in their kernels'
+    variants)."""
     for v in variants:
         path = ("species" if v["shape"] == "main path batch" else
+                "species_m8" if v["shape"] == "m8 path batch" else
                 "paired_genes" if v["shape"].startswith("paired genes") else
                 "paired_snps" if v["shape"].startswith("paired snps") else
                 "genes" if v["shape"].startswith("genes") and
@@ -1511,8 +1983,11 @@ def main():
     phase_build()
     comm, fq, truth, prof = phase_data()
     variants = phase_kernels(prof, fq)
-    species_launches = phase_main(prof, fq, truth)
+    main_run = phase_main(prof, fq, truth)
+    m8_launches, m8_variant = phase_species_m8(prof, fq, main_run, smi_line)
+    variants.append(m8_variant)
     phase_cpu_vs_card(comm, fq)
+    m8_cli_launches = phase_m8_cli(comm, fq, smi_line)
     del prof
     torch.cuda.empty_cache()
     gcomm, gfq, gprof = phase_genes_data()
@@ -1535,14 +2010,19 @@ def main():
     torch.cuda.empty_cache()
     snps_cli = phase_snps_cpu(comm, fq)
     paired_cli = phase_paired_cli(comm, smi_line)
-    by_path = {"species": species_launches, "genes": genes_launches,
+    merge_cli_launches = phase_merge_cli(smi_line)
+    merge_main_launches = phase_merge_main(gcomm, smi_line)
+    by_path = {"species": main_run["launches"], "genes": genes_launches,
                "genes_cli_global": genes_cli["global"]["card_launches"],
                "snps": snps_launches,
                "snps_cli_local": snps_cli["local"]["card_launches"],
                "paired_genes": paired_genes_launches,
                "paired_snps": paired_snps_launches,
                "paired_cli_genes": paired_cli["genes"]["card_launches"],
-               "paired_cli_snps": paired_cli["snps"]["card_launches"]}
+               "paired_cli_snps": paired_cli["snps"]["card_launches"],
+               "species_m8": m8_launches, "m8_cli": m8_cli_launches,
+               "merge_cli": merge_cli_launches,
+               "merge_main": merge_main_launches}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

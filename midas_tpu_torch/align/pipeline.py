@@ -6,11 +6,13 @@ kernel on the card, the plain version on the CPU) into the equivalent
 of one bowtie2 / hs-blastn invocation (reference call sites:
 midas/run/species.py:29-49, genes.py:116-145, snps.py:97-128).
 Alignments never leave the device as text: downstream profilers consume
-the [B, C] result tensors directly.
+the [B, C] result tensors directly, except on the species --m8 path,
+which reads a batch's whole result back (Aligner.align_batch).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -24,6 +26,7 @@ from midas_tpu_torch.align.seed import (SeedParams, find_candidates,
                                         pack_words_host, reverse_batch)
 from midas_tpu_torch.db.index import SeedIndex
 from midas_tpu_torch.db.refpack import ReferencePack
+from midas_tpu_torch.io.batch import ReadBatch
 
 
 def resolve_device(device) -> torch.device:
@@ -47,6 +50,49 @@ def quality_penalties(quals: torch.Tensor,
     q = quals.to(torch.int32).clamp(max=40)
     return (mn + torch.div((mx - mn) * q, 40, rounding_mode="floor")
             ).to(torch.int8)
+
+
+@dataclasses.dataclass
+class AlignmentResult:
+    """Host-side view of one aligned batch. All arrays [B, C] unless
+    noted; coordinates are local to the hit sequence (0-based,
+    half-open), query coordinates are in the aligned strand's frame."""
+
+    names: list                 # [B'] read names
+    n_reads: int
+    valid: np.ndarray           # bool: candidate produced an alignment
+    score: np.ndarray           # float32 raw DP score
+    seq_idx: np.ndarray         # target sequence index into pack.names
+    strand: np.ndarray          # 0 fwd, 1 rc
+    tstart: np.ndarray
+    tend: np.ndarray
+    qstart: np.ndarray
+    qend: np.ndarray
+    matches: np.ndarray
+    mismatches: np.ndarray
+    gap_cols: np.ndarray
+    gap_opens: np.ndarray
+
+    @property
+    def aln_cols(self) -> np.ndarray:
+        return self.matches + self.mismatches + self.gap_cols
+
+    @property
+    def nm(self) -> np.ndarray:
+        return self.mismatches + self.gap_cols
+
+    @property
+    def blast_pid(self) -> np.ndarray:
+        return 100.0 * self.matches / np.maximum(self.aln_cols, 1)
+
+    @property
+    def aligned_qlen(self) -> np.ndarray:
+        return self.qend - self.qstart
+
+    @property
+    def bowtie_pid(self) -> np.ndarray:
+        alen = np.maximum(self.aligned_qlen, 1)
+        return 100.0 * (alen - self.nm) / alen
 
 
 def dispatch_banded_align(q_pair, qlens_pair, win_pair, scoring, band_width,
@@ -180,6 +226,17 @@ def _align_batch_stages(
     return _postprocess(out, cands, winstart, seq_idx, seq_lo)
 
 
+def _pack_result(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Stack the 12 [B, C] result planes into one int32 [12, B, C]
+    tensor, so that the host reads a batch back in one copy. DP scores
+    are integer-valued (integer match/mismatch/gap parameters), so the
+    int32 round trip is exact; torch.round rounds half to even."""
+    planes = [out["valid"].to(torch.int32),
+              torch.round(out["score"]).to(torch.int32)]
+    planes += [out[k].to(torch.int32) for k in Aligner._PACK_FIELDS[2:]]
+    return torch.stack(planes)
+
+
 class Aligner:
     """Aligner bound to one ReferencePack + SeedIndex, its tensors on
     one device."""
@@ -234,6 +291,31 @@ class Aligner:
         # partial); offsets int64, as searchsorted wants matching dtypes
         self.pack_arrays = {k: put(pack_arrays[k], np.int64)
                             for k in ("words", "nmask", "offsets")}
+
+    _PACK_FIELDS = ("valid", "score", "seq_idx", "strand", "tstart", "tend",
+                    "qstart", "qend", "matches", "mismatches", "gap_cols",
+                    "gap_opens")
+
+    def align_batch(self, batch: ReadBatch) -> AlignmentResult:
+        """Align one host batch on the aligner's device and read its whole
+        result back in one copy: valid as bool, score as float32, the
+        other planes as int32. Padding rows past n_reads are not valid."""
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        quals = put(batch.quals) if self.scoring.qual_scaled else None
+        packed = _pack_result(self.align_batch_device(
+            put(batch.codes), put(batch.lengths), quals=quals)).cpu().numpy()
+        host = {}
+        for i, k in enumerate(self._PACK_FIELDS):
+            arr = packed[i]
+            if k == "valid":
+                arr = arr.astype(bool)
+            elif k == "score":
+                arr = arr.astype(np.float32)
+            host[k] = arr
+        host["valid"][batch.n_reads:] = False
+        return AlignmentResult(names=batch.names, n_reads=batch.n_reads, **host)
 
     def align_batch_device(self, codes: torch.Tensor, qlens: torch.Tensor,
                            quals: Optional[torch.Tensor] = None):

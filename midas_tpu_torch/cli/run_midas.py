@@ -10,9 +10,9 @@ scripts/run_midas.py :86-143, :204-289, :338-430) plus --device. Run as
 
 It runs on the card (--device cuda, the default) and raises without
 one; --device cpu runs the plain PyTorch versions of the kernels.
-genes and snps take mate pairs with -1/-2 or --interleaved. Not yet
-ported: --m8 (ignored with --remove_temp, as midas_tpu does) and
-multi-process runs.
+genes and snps take mate pairs with -1/-2 or --interleaved; species
+writes BLAST outfmt-6 rows with --m8. Not yet ported: multi-process
+runs.
 
 Differences from the reference, by design:
 - no --threads-style process parallelism: batches run data-parallel on
@@ -46,8 +46,8 @@ def species_parser(subs):
                    help="Remove temporary files, including BLAST-like output")
     p.add_argument("--m8", default=False, action="store_true",
                    help="Write BLAST outfmt-6 alignments to species/temp/alignments.m8 "
-                        "(not yet ported: raises, unless --remove_temp is "
-                        "given, which makes it moot)")
+                        "(forces per-batch host readback; default keeps the classifier "
+                        "fully device-resident)")
     p.add_argument("--word_size", type=int, metavar="INT", default=28,
                    help="Accepted for compatibility (seeding uses the k-mer index)")
     p.add_argument("--mapid", type=float, metavar="FLOAT",

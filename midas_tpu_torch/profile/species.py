@@ -19,8 +19,8 @@ then classified with the reference's exact filter semantics:
   file order breaking ties (:165-175)
 
 Output is byte-identical to midas_tpu's single-device path on the same
-inputs. Not ported yet: the --m8 host path (`_run_host` and the m8
-writer) and multi-host runs.
+inputs, with or without --m8 (the host classifier and the BLAST
+outfmt-6 writer). Not ported yet: multi-host runs.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from midas_tpu_torch.align.params import MARKER_SCORING
-from midas_tpu_torch.align.pipeline import Aligner, resolve_device
+from midas_tpu_torch.align.pipeline import (Aligner, AlignmentResult,
+                                            resolve_device)
 from midas_tpu_torch.align.seed import SeedParams
 from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.layout import Database
@@ -98,19 +99,22 @@ class SpeciesProfiler:
         """Align + classify all reads. Returns the abundance dict:
         species_id -> {count, cov, rel_abun}.
 
-        The classifier runs on the profiler's device
+        Without m8 output the classifier runs on the profiler's device
         (profile.device_steps.species_update): per-species unique
         counts/bp accumulate in device state updated in place, and only
         ambiguous best-hit sets (which go through the reference's host
-        RNG assignment, species.py:104-119) come back. m8 output is not
-        ported yet."""
-        if m8_path is not None:
-            raise NotImplementedError(
-                "--m8 (BLAST outfmt-6 output) is not yet ported to "
-                "midas_tpu_torch")
-        unique_count, unique_bp, ambiguous = self._run_device(
-            read_paths, read_length, max_reads, batch_size,
-            checkpoint_path=checkpoint_path)
+        RNG assignment, species.py:104-119) come back. With m8_path the
+        full alignment results are needed on the host for the outfmt-6
+        rows, so each batch is read back and the host classifier runs
+        instead (no checkpoint); both paths give equal abundances and
+        stats."""
+        if m8_path is None:
+            unique_count, unique_bp, ambiguous = self._run_device(
+                read_paths, read_length, max_reads, batch_size,
+                checkpoint_path=checkpoint_path)
+        else:
+            unique_count, unique_bp, ambiguous = self._run_host(
+                read_paths, read_length, max_reads, batch_size, m8_path)
         return self.assign_and_normalize(unique_count, unique_bp, ambiguous)
 
     def assign_and_normalize(self, unique_count, unique_bp, ambiguous) -> Dict:
@@ -199,6 +203,62 @@ class SpeciesProfiler:
                 "rel_abun": float(cov[i]) / total_cov if total_cov > 0 else 0,
             }
         return abundance
+
+    def _run_host(self, read_paths, read_length, max_reads, batch_size,
+                  m8_path) -> Tuple[np.ndarray, np.ndarray, List]:
+        """Host-side classifier over each batch's read-back alignments
+        (Aligner.align_batch; the DP runs on the profiler's device), with
+        the m8 rows written as it goes. Semantics: species.py:64-119."""
+        n_species = len(self.species_order)
+        unique_count = np.zeros(n_species, dtype=np.int64)
+        unique_bp = np.zeros(n_species, dtype=np.float64)
+        ambiguous: List[Tuple] = []
+        total_reads = total_bp = total_alns = 0
+        with open(m8_path, "w") as m8:
+            for bi, batch in enumerate(load_read_batches(
+                read_paths, batch_size=batch_size,
+                max_len=self.aligner.max_read_len,
+                read_length=read_length, max_reads=max_reads,
+            )):
+                total_reads += batch.n_reads
+                total_bp += int(batch.lengths[: batch.n_reads].sum())
+                res = self.aligner.align_batch(batch)
+                pid = res.blast_pid
+                aln = res.aln_cols
+                cutoff = self.seq_cutoff[
+                    np.clip(res.seq_idx, 0, len(self.seq_cutoff) - 1)]
+                qlens = np.asarray(batch.lengths)[:, None]
+                qcov = aln / np.maximum(qlens, 1)
+                # hs-blastn's -evalue 1e-3 gate, as a per-read float64
+                # score floor (the device path's twin is the integer
+                # evalue_min_score table: the same test on integer scores)
+                ethr = MARKER_SCORING.evalue_score_threshold(
+                    np.maximum(qlens, 1).astype(np.float64),
+                    float(self.pack.total_len))
+                keep = (res.valid & (res.score > 0) & (pid >= cutoff)
+                        & (qcov >= self.aln_cov) & (res.score >= ethr))
+                total_alns += int(res.valid.sum())
+                self._write_m8(m8, batch, res)
+                scores = np.where(keep, res.score, -np.inf)
+                best = scores.max(axis=1)
+                has_hit = np.isfinite(best)
+                best_mask = keep & (scores == best[:, None])
+                n_best = best_mask.sum(axis=1)
+                sp_of = self.seq_species[
+                    np.clip(res.seq_idx, 0, len(self.seq_species) - 1)]
+                for i in np.flatnonzero(has_hit[: batch.n_reads]):
+                    cols = np.flatnonzero(best_mask[i])
+                    if n_best[i] == 1:
+                        c = cols[0]
+                        unique_count[sp_of[i, c]] += 1
+                        unique_bp[sp_of[i, c]] += aln[i, c]
+                    else:
+                        ambiguous.append((res.seq_idx[i, cols],
+                                          sp_of[i, cols], aln[i, cols],
+                                          bi * batch_size + int(i)))
+        self.stats = dict(total_reads=total_reads, total_bp=total_bp,
+                          total_alns=total_alns)
+        return unique_count, unique_bp, ambiguous
 
     def _run_device(self, read_paths, read_length, max_reads, batch_size,
                     amb_cap: Optional[int] = None,
@@ -341,6 +401,38 @@ class SpeciesProfiler:
                           total_alns=int(host["total_alns"]))
         return unique_count, unique_bp, ambiguous
 
+    def _write_m8(self, fh, batch, res: AlignmentResult) -> None:
+        """BLAST outfmt-6-compatible rows for passing candidates, with the
+        reference's renamed-query convention '{id}_{len}'
+        (stream_seqs.py:59)."""
+        dblen = self.pack.total_len
+        for i in range(res.n_reads):
+            qlen = int(batch.lengths[i])
+            qname = f"{batch.names[i]}_{qlen}"
+            for c in np.flatnonzero(res.valid[i]):
+                if res.score[i, c] <= 0:
+                    continue
+                raw = float(res.score[i, c])
+                bits = MARKER_SCORING.bitscore(raw)
+                ev = MARKER_SCORING.evalue(raw, qlen, dblen)
+                if ev > 1e-3:
+                    # hs-blastn's -evalue 1e-3 emission gate
+                    # (midas/run/species.py:39-46); immaterial above
+                    # ~25 bp, but 14-mer seeds can hit fragments the
+                    # binary's 28 bp word size never reports
+                    continue
+                strand = int(res.strand[i, c])
+                ts, te = int(res.tstart[i, c]) + 1, int(res.tend[i, c])
+                if strand:  # minus strand: m8 swaps target coords
+                    ts, te = te, ts
+                fh.write("\t".join(str(x) for x in [
+                    qname, self.pack.names[res.seq_idx[i, c]],
+                    f"{res.blast_pid[i, c]:.2f}", int(res.aln_cols[i, c]),
+                    int(res.mismatches[i, c]), int(res.gap_opens[i, c]),
+                    int(res.qstart[i, c]) + 1, int(res.qend[i, c]),
+                    ts, te, f"{ev:.2g}", f"{bits:.1f}",
+                ]) + "\n")
+
 
 def write_abundance(outpath: str, abundance: Dict) -> None:
     """species_profile.txt writer, format-identical to species.py:165-175."""
@@ -411,18 +503,19 @@ def run_species(args: Dict) -> Dict:
     """The species pipeline end to end, with the reference's output layout
     (species.py:229-269): <outdir>/species/{species_profile.txt,
     temp/read_count.txt, temp/state.npz}. args["device"] picks the
-    device (default "cuda"). Single process; --m8 is not yet ported,
-    and is ignored with --remove_temp, as midas_tpu ignores it (the m8
-    file would live under temp/, which that flag deletes)."""
+    device (default "cuda"). Single process.
+
+    The default path keeps the whole classifier on the device (no
+    per-batch readback). `--m8` opts into writing BLAST outfmt-6 rows to
+    temp/alignments.m8, which reads every alignment back to the host and
+    writes no temp/state.npz; with --remove_temp it is ignored, as
+    midas_tpu ignores it (the m8 file would live under temp/, which that
+    flag deletes)."""
     from midas_tpu_torch.io.batch import detect_max_read_len
     from midas_tpu_torch.profile.common import require_single_process
     from midas_tpu_torch.utils import stage_timer
 
     require_single_process("species")
-    if args.get("m8") and not args.get("remove_temp"):
-        raise NotImplementedError(
-            "--m8 (BLAST outfmt-6 output) is not yet ported to "
-            "midas_tpu_torch")
     device = resolve_device(args.get("device") or "cuda")
     outdir = args["outdir"]
     log = args.get("log")
@@ -440,10 +533,12 @@ def run_species(args: Dict) -> Dict:
                                              args.get("read_length")),
             device=device,
         )
+    m8_path = (os.path.join(outdir, "species/temp/alignments.m8")
+               if args.get("m8") and not args.get("remove_temp") else None)
     with stage_timer("Aligning reads to marker-genes database", log):
         abundance = profiler.run(
             paths, read_length=args.get("read_length"),
-            max_reads=args.get("max_reads"),
+            max_reads=args.get("max_reads"), m8_path=m8_path,
             checkpoint_path=os.path.join(outdir, "species/temp/state.npz"),
         )
     with stage_timer("Estimating species abundance", log):

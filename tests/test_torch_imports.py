@@ -37,8 +37,9 @@ def test_port_imports_no_jax_and_no_midas_tpu():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     for m in ("profile.species", "profile.genes", "profile.snps",
               "profile.common", "profile.device_steps", "align.pipeline",
-              "align.cuda_sw", "align.oracle"):
+              "align.cuda_sw", "align.oracle", "merge", "merge.core",
+              "merge.species", "merge.genes", "merge.snps", "utils",
+              "cli.run_midas", "cli.merge_midas"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
-    assert "midas_tpu_torch.cli.run_midas" in got["modules"]
     assert got["bad"] == []
     assert not got["cuda_initialized"]

@@ -494,7 +494,8 @@ def test_species_multi_process_not_yet_ported(sim_community, sim_reads,
 
 def test_species_m8_with_remove_temp(sim_community, sim_reads, tmp_path):
     """--m8 --remove_temp ignores --m8, as midas_tpu does, and writes
-    midas_tpu's species_profile.txt; --m8 alone is still not ported."""
+    midas_tpu's species_profile.txt; --m8 alone writes midas_tpu's
+    profile, read count and alignments.m8, and no state.npz."""
     from midas_tpu.cli.run_midas import main as j_run_midas
 
     fq, db = sim_reads[0], sim_community.db_dir
@@ -511,6 +512,15 @@ def test_species_m8_with_remove_temp(sim_community, sim_reads, tmp_path):
     assert len(want.splitlines()) > 2
     for out in (jout, tout):
         assert not os.path.isdir(os.path.join(out, "species/temp"))
-    with pytest.raises(NotImplementedError, match="--m8"):
-        t_run_midas(["species", str(tmp_path / "m8"), "-1", fq, "-d", db,
-                     "--m8", "--device", "cpu"])
+    jout, tout = str(tmp_path / "jax_m8"), str(tmp_path / "torch_m8")
+    j_run_midas(["species", jout, "-1", fq, "-d", db, "--m8"])
+    t_run_midas(["species", tout, "-1", fq, "-d", db, "--m8", "--device",
+                 "cpu"])
+    for f in (f, "species/temp/read_count.txt", "species/temp/alignments.m8"):
+        with open(os.path.join(jout, f), "rb") as a, \
+                open(os.path.join(tout, f), "rb") as b:
+            want = a.read()
+            assert b.read() == want, f
+        assert want, f
+    for out in (jout, tout):
+        assert not os.path.exists(os.path.join(out, "species/temp/state.npz"))
