@@ -147,6 +147,27 @@ The m8 and merge phases:
              per-sample depths). Seconds of each stage, and the merge's
              seconds per million sites.
 
+The multi-process phase (run after phase 18, before 21, while phase 3's
+database and reads and the CLI phases' outputs are on disk):
+
+23. multirank    — `run_midas` under 2 ranks on this one card, launched
+             as torchrun launches them (RANK, LOCAL_RANK, WORLD_SIZE,
+             MASTER_ADDR, MASTER_PORT; each rank is `chip_smoke.py
+             --rank-worker`), against the same command in 1 rank:
+             species over phase 3's database and 65,536 reads (batch
+             8,192: K1 4 a rank), then genes -m local over 2,048 reads
+             and over 1,024 -1/-2 pairs and snps -m global over 2,048
+             reads (the first 20 species, batch 512: K3 with qpen and K2
+             2 a rank). Outputs identical to the 1-rank run's (genes and
+             snps also to phases 10, 14 and 18), every rank on the card.
+             Each rank's profiling-stage and merge seconds, the walls,
+             and the aggregate reads/s of the profiling stage, 2 ranks
+             against 1. Then the snps merge at the repgenome-10sp width:
+             2 ranks each load phase 13's end-of-stream state ([4 x
+             (G+1)] counts over the 10 species' 30 Mb, and its gapped
+             rows) and time run_snps_multihost's merge of it
+             (merge_snps_accumulators), checked against twice the state.
+
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
@@ -155,8 +176,8 @@ pass 2, genes launches), banded_sw_template (the template kernel,
 timed on the above-the-limit check, launched on no path),
 banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
 launches) and banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2,
-snps launches), each with every path's launches (the paired, m8 and
-merge paths' among them), and as the last line
+snps launches), each with every path's launches (the paired, m8,
+merge and multirank paths' among them), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -1915,6 +1936,317 @@ def phase_paired_cli(comm, smi_line):
     return result
 
 
+# the multirank phase: ranks launched as a launcher launches them, each
+# running `chip_smoke.py --rank-worker` on the card
+MULTIRANK_BATCH = 512          # genes / snps: 2,048 reads in 4 batches
+MULTIRANK_TIMEOUT = 600        # seconds a launch may take, set-up included
+MULTIRANK_DIST_TIMEOUT = 300   # seconds a collective waits for a rank
+
+
+def _timed_methods(rec):
+    """Wrap the profiling stage (each profiler's stream over its batches)
+    and the end-of-stream merge (the driver's gathers) with timers into
+    rec: summed seconds, the stage's first start and last end (epoch
+    seconds) and the profiler's device. Nested merge calls count once."""
+    import functools
+
+    from midas_tpu_torch.dist import driver
+    from midas_tpu_torch.profile.genes import GenesProfiler
+    from midas_tpu_torch.profile.snps import SnpsProfiler
+    from midas_tpu_torch.profile.species import SpeciesProfiler
+
+    depth = [0]
+
+    def wrap(owner, name, key):
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            depth[0] += 1
+            t0, e0 = time.perf_counter(), time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
+                    rec.setdefault(f"{key}_start", e0)
+                    rec[f"{key}_end"] = time.time()
+                if key == "profile_seconds":
+                    rec["device"] = str(a[0].device)
+
+        setattr(owner, name, timed)
+
+    wrap(SpeciesProfiler, "_run_device", "profile_seconds")
+    wrap(GenesProfiler, "_accumulate", "profile_seconds")
+    wrap(SnpsProfiler, "_accumulate", "profile_seconds")
+    for name in ("merge_species_accumulators", "merge_snps_accumulators",
+                 "_allgather_sum", "_allgather_rows"):
+        wrap(driver, name, "merge_seconds")
+
+
+def rank_worker(spec):
+    """One rank of a multirank launch. With spec["commands"]: `run_midas`
+    over each command in turn, in batches of spec["batch_size"] reads
+    (the run_* entry points' BATCH_SIZE when None), printing for each a
+    RANK_RESULT line: its rank and world size, the profiler's device,
+    this command's kernel launches, the seconds of its profiling stage
+    and of its end-of-stream merge, and the command's seconds. With
+    spec["snps_state"]: the merge of that snps state (as
+    run_snps_multihost merges a rank's), timed from a barrier, checked
+    against the state summed over the ranks, in one RANK_RESULT line."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+    from midas_tpu_torch.dist import driver
+    from midas_tpu_torch.profile import common
+
+    driver.DEFAULT_TIMEOUT_S = MULTIRANK_DIST_TIMEOUT
+    if spec.get("batch_size"):
+        common.BATCH_SIZE = spec["batch_size"]
+    if spec.get("snps_state"):
+        _snps_merge_worker(spec["snps_state"])
+        return
+    rec = {}
+    _timed_methods(rec)
+    for argv in spec["commands"]:
+        rec.clear()
+        cuda_sw.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        run_midas(argv)
+        rec.update(rank=driver.process_index(), world=driver.process_count(),
+                   launches=dict(cuda_sw.LAUNCHES),
+                   command_seconds=time.perf_counter() - t0)
+        print("RANK_RESULT " + json.dumps(rec), flush=True)
+
+
+def _snps_merge_worker(state_path):
+    import numpy as np
+    import torch.distributed as dist
+
+    from midas_tpu_torch.dist import driver
+    from midas_tpu_torch.profile import checkpoint as ckpt
+
+    driver.initialize()
+    got = ckpt.load_any(state_path)
+    if got is None:
+        raise SystemExit(f"no snps state at {state_path}")
+    host = got[0]
+    n = driver.process_count()
+    dist.barrier()
+    t0 = time.perf_counter()
+    merged = driver.merge_snps_accumulators(host)
+    dt = time.perf_counter() - t0
+    for k in ("counts", "aligned_reads", "mapped_reads"):
+        want = n * host[k].astype(np.int64)
+        if merged[k].dtype != np.int64 or not np.array_equal(merged[k], want):
+            raise SystemExit(f"snps merge: {k} is not {n} x the state's")
+    for k in ("gap_codes", "gap_quals", "gap_meta"):
+        if not np.array_equal(merged[k], np.concatenate([host[k]] * n)):
+            raise SystemExit(f"snps merge: {k} is not the state's "
+                             f"rows {n} times")
+    print("RANK_RESULT " + json.dumps(dict(
+        rank=driver.process_index(), world=n, merge_seconds=dt,
+        counts=int(host["counts"].size),
+        counts_bytes_int32=int(host["counts"].nbytes),
+        gap_rows=int(host["gap_codes"].shape[0]))), flush=True)
+
+
+def _launch_ranks(n, commands, name, batch_size=None, snps_state=None):
+    """Launch n ranks of rank_worker over commands in batches of
+    batch_size reads (or over the merge of snps_state), with the
+    environment torchrun sets (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT); all ranks on this card. Fails at once when a rank exits
+    nonzero (the others are killed), or after MULTIRANK_TIMEOUT. Returns
+    (the ranks' RANK_RESULT records per command, wall seconds)."""
+    spec = dict(commands=commands, batch_size=batch_size,
+                snps_state=snps_state)
+    if snps_state:
+        commands = [None]     # one record a rank
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    logdir = os.path.join(WORK, "multirank_logs", name)
+    os.makedirs(logdir, exist_ok=True)
+    # the host's cores split evenly between the ranks (torchrun sets one
+    # thread a rank): torch's default of a thread a core in every rank
+    # oversubscribes the host
+    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+               MASTER_PORT=str(port),
+               OMP_NUM_THREADS=str(max(os.cpu_count() // n, 1)))
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for r in range(n):
+        out = open(os.path.join(logdir, f"rank{r}.out"), "w+")
+        err = open(os.path.join(logdir, f"rank{r}.err"), "w+")
+        files.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             json.dumps(spec)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+            stdout=out, stderr=err, text=True))
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > MULTIRANK_TIMEOUT:
+                r = bad[0] if bad else 0
+                files[r][1].seek(0)
+                fail(f"multirank {name}: rank {r} of {n} "
+                     + (f"exited {procs[r].returncode}" if bad else
+                        f"timed out after {MULTIRANK_TIMEOUT} s")
+                     + f":\n{files[r][1].read()[-3000:]}")
+            time.sleep(0.2)
+        wall = time.perf_counter() - t0
+        recs = []
+        for r, (p, (out, err)) in enumerate(zip(procs, files)):
+            if p.returncode != 0:
+                err.seek(0)
+                fail(f"multirank {name}: rank {r} of {n} exited "
+                     f"{p.returncode}:\n{err.read()[-3000:]}")
+            out.seek(0)
+            recs.append([json.loads(line[12:]) for line in out
+                         if line.startswith("RANK_RESULT ")])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
+    if any(len(rr) != len(commands) for rr in recs):
+        fail(f"multirank {name}: a rank reported {[len(r) for r in recs]} "
+             f"of {len(commands)} commands")
+    for rr in recs:
+        for rec in rr:
+            if not snps_state and not rec.get("device", "").startswith(
+                    "cuda"):
+                fail(f"multirank {name}: rank {rec['rank']} ran on "
+                     f"{rec.get('device')}, not on the card")
+            if rec["world"] != n:
+                fail(f"multirank {name}: rank {rec['rank']} saw "
+                     f"{rec['world']} ranks, not {n}")
+    # per command: the ranks' records
+    return [[rr[i] for rr in recs] for i in range(len(commands))], wall
+
+
+def _sum_launches(recs):
+    out = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _rank_figures(recs, reads):
+    """A run's figures from its ranks' records: the profiling stage's
+    span (first start to last end over the ranks) and aggregate reads/s
+    over it, each rank's stage and merge seconds and launches."""
+    span = (max(r["profile_seconds_end"] for r in recs)
+            - min(r["profile_seconds_start"] for r in recs))
+    return dict(
+        profile_span_seconds=span, reads_per_sec=reads / span,
+        command_seconds=max(r["command_seconds"] for r in recs),
+        ranks=[dict(rank=r["rank"], device=r["device"],
+                    launches=r["launches"],
+                    profile_seconds=r["profile_seconds"],
+                    merge_seconds=r.get("merge_seconds", 0.0))
+               for r in recs])
+
+
+def phase_multirank(comm, fq, smi_line):
+    """run_midas under 2 ranks on this one card against the same command
+    in 1 rank: species over the phase-3 database and its 65,536 reads
+    (batch 8,192: 4 batches a rank), then genes -m local over 2,048
+    reads and over 1,024 -1/-2 pairs and snps -m global over 2,048 reads
+    (the first 20 species, batch 512: 2 batches a rank). Outputs equal
+    byte for byte (genes and snps also equal to the earlier phases'
+    in-process runs at batch 8,192), K1 4 + 4, K3 with qpen and K2
+    summed over the ranks equal to the single run's, every rank on the
+    card. Reports the profiling stage's aggregate reads/s of 2 ranks
+    against 1, each rank's stage and merge seconds, and the walls."""
+    species_cmd = ["species", None, "-1", fq, "-d", comm.db_dir]
+    ids = ",".join(sp.species_id for sp in comm.species[:N_GENES_CPU_SPECIES])
+    pairs = [os.path.join(WORK, f"cli_pairs_{i}.fq.gz") for i in (1, 2)]
+    cli = {   # name: (argv, reads, the earlier phase's in-process run)
+        "genes": (["genes", None, "-1", fq, "-n", str(N_CPU_READS),
+                   "-m", "local"], N_CPU_READS, "genes_cli_local_cuda"),
+        "paired_genes": (["genes", None, "-1", pairs[0], "-2", pairs[1],
+                          "-m", "local"], 2 * N_CLI_PAIRS,
+                         "paired_cli_genes_mates_cuda"),
+        "snps": (["snps", None, "-1", fq, "-n", str(N_CPU_READS),
+                  "-m", "global"], N_CPU_READS, "snps_cli_global_cuda"),
+    }
+    runs, outs = {}, {}
+    for n in (1, 2):
+        out = os.path.join(WORK, f"multirank_species_{n}")
+        outs["species", n] = out
+        species_cmd[1] = out
+        recs, wall = _launch_ranks(n, [species_cmd], f"species_{n}")
+        runs["species", n] = dict(_rank_figures(recs[0], N_READS),
+                                  wall_seconds=wall)
+        cmds = []
+        for name, (argv, _reads, _prior) in sorted(cli.items()):
+            outs[name, n] = os.path.join(WORK, f"multirank_{name}_{n}")
+            cmds.append([argv[0], outs[name, n], *argv[2:], "-d",
+                         comm.db_dir, "--species_id", ids])
+        recs, wall = _launch_ranks(n, cmds, f"cli_{n}",
+                                   batch_size=MULTIRANK_BATCH)
+        for (name, (_argv, reads, _prior)), rr in zip(sorted(cli.items()),
+                                                      recs):
+            runs[name, n] = _rank_figures(rr, reads)
+        runs["cli", n] = dict(wall_seconds=wall)
+
+    _same_files(outs["species", 1], outs["species", 2], M8_OUTPUTS[:2],
+                "species, 2 ranks vs 1")
+    if runs["species", 1]["ranks"][0]["launches"] != {"K1": 8} or [
+            r["launches"] for r in runs["species", 2]["ranks"]] != [
+            {"K1": 4}, {"K1": 4}]:
+        fail(f"multirank species launched "
+             f"{[r['launches'] for r in runs['species', 2]['ranks']]} "
+             f"(2 ranks), {runs['species', 1]['ranks'][0]['launches']} "
+             "(1 rank)")
+    by_path = {"multirank_species": _sum_launches(runs["species", 2]["ranks"])}
+    for name, (argv, _reads, prior) in sorted(cli.items()):
+        program = argv[0]
+        files = [f"{program}/summary.txt", f"{program}/species.txt"] + [
+            f"{program}/output/{f}" for f in sorted(os.listdir(
+                os.path.join(outs[name, 1], program, "output")))]
+        _same_files(outs[name, 1], outs[name, 2], files,
+                    f"{name}, 2 ranks vs 1")
+        _same_files(os.path.join(WORK, prior), outs[name, 2], files,
+                    f"{name}, 2 ranks vs the in-process card run")
+        one = runs[name, 1]["ranks"][0]["launches"]
+        each = [r["launches"] for r in runs[name, 2]["ranks"]]
+        if one != {"K3_qpen": 4, "K2": 4} or each != [
+                {"K3_qpen": 2, "K2": 2}] * 2:
+            fail(f"multirank {name} launched {each} (2 ranks), {one} "
+                 "(1 rank)")
+        key = "multirank_snps" if program == "snps" else "multirank_genes"
+        got = by_path.setdefault(key, {})
+        for k, v in _sum_launches(runs[name, 2]["ranks"]).items():
+            got[k] = got.get(k, 0) + v
+    # the snps merge at the repgenome-10sp width, on phase 13's state
+    state = os.path.join(WORK, "snps_main", "state.npz")
+    recs, wall = _launch_ranks(2, None, "snps_merge", snps_state=state)
+    runs["snps_merge", 2] = dict(
+        wall_seconds=wall, counts=recs[0][0]["counts"],
+        counts_bytes_int32=recs[0][0]["counts_bytes_int32"],
+        gap_rows=recs[0][0]["gap_rows"],
+        merge_seconds=[r["merge_seconds"] for r in recs[0]])
+    emit("multirank", card=smi_line, identical=True,
+         species_reads=N_READS, species_batch=BATCH,
+         cli_batch=MULTIRANK_BATCH,
+         **{f"{name}_{n}rank": v for (name, n), v in sorted(runs.items())},
+         species_reads_per_sec_2_over_1=(
+             runs["species", 2]["reads_per_sec"]
+             / runs["species", 1]["reads_per_sec"]),
+         launches_by_path=by_path)
+    return by_path
+
+
 def kernels_line(variants, by_path, smi_line):
     """The kernels line: one entry per kernel the paths run, timed at its
     path's shape, with its path's launches — banded_sw (K1, packed, at
@@ -2010,6 +2342,7 @@ def main():
     torch.cuda.empty_cache()
     snps_cli = phase_snps_cpu(comm, fq)
     paired_cli = phase_paired_cli(comm, smi_line)
+    multirank_launches = phase_multirank(comm, fq, smi_line)
     merge_cli_launches = phase_merge_cli(smi_line)
     merge_main_launches = phase_merge_main(gcomm, smi_line)
     by_path = {"species": main_run["launches"], "genes": genes_launches,
@@ -2022,7 +2355,7 @@ def main():
                "paired_cli_snps": paired_cli["snps"]["card_launches"],
                "species_m8": m8_launches, "m8_cli": m8_cli_launches,
                "merge_cli": merge_cli_launches,
-               "merge_main": merge_main_launches}
+               "merge_main": merge_main_launches, **multirank_launches}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2030,4 +2363,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:   # one rank of phase multirank
+        rank_worker(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -11,7 +11,9 @@ cli.run_midas CLI) run on the card by default (device="cuda") and raise
 without one; they run on the CPU, with the plain PyTorch versions of the
 kernels, only when the caller passes device="cpu".
 
-Ported so far: `run_midas species` on one device.
+Ported so far: `run_midas species|genes|snps` (reads single-end or
+mate-paired; species with --m8) and `merge_midas`, on one device or
+over several processes, one rank per card (dist/driver.py).
 """
 
 __version__ = "0.1.0"

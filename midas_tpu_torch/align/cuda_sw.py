@@ -61,8 +61,12 @@ def build_library() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"banded_sw: nvcc failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
-    with open(os.path.join(build_dir(), "banded_sw.ptxas.txt"), "w") as f:
+    # ranks that start together on a fresh checkout each build to files
+    # of their own pid and rename them into place: whole files only
+    report = os.path.join(build_dir(), "banded_sw.ptxas.txt")
+    with open(f"{report}.tmp.{os.getpid()}", "w") as f:
         f.write(proc.stderr)
+    os.replace(f"{report}.tmp.{os.getpid()}", report)
     os.replace(tmp, so)
     return so
 

@@ -31,12 +31,22 @@ from midas_tpu_torch.io.batch import ReadBatch
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. A CUDA device without a card
-    is an error: the port never falls back from the card to the CPU."""
+    is an error: the port never falls back from the card to the CPU.
+    Under a launcher of several processes (LOCAL_RANK set, or a process
+    group of several ranks) a bare "cuda" is this rank's card,
+    cuda:{local rank % card count}, made the current device."""
+    from midas_tpu_torch.dist.driver import local_rank
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but no CUDA card is available; pass "
             "device='cpu' to run the plain CPU path")
+    if device.type == "cuda" and device.index is None \
+            and local_rank() is not None:
+        device = torch.device("cuda",
+                              local_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     return device
 
 

@@ -11,8 +11,16 @@ scripts/run_midas.py :86-143, :204-289, :338-430) plus --device. Run as
 It runs on the card (--device cuda, the default) and raises without
 one; --device cpu runs the plain PyTorch versions of the kernels.
 genes and snps take mate pairs with -1/-2 or --interleaved; species
-writes BLAST outfmt-6 rows with --m8. Not yet ported: multi-process
-runs.
+writes BLAST outfmt-6 rows with --m8.
+
+Over N cards, one rank per card:
+
+    torchrun --nproc_per_node=N -m midas_tpu_torch.cli.run_midas species ...
+
+Each rank joins the launcher's process group (dist/driver.py), strides
+the shared read stream on its card, and rank 0 writes the outputs,
+log.txt and readme.txt; they are byte-identical to a single-process
+run's. Stage splits of genes / snps and --m8 exit there.
 
 Differences from the reference, by design:
 - no --threads-style process parallelism: batches run data-parallel on
@@ -58,7 +66,8 @@ def species_parser(subs):
                    help="Trim reads to READ_LENGTH and discard reads with length < READ_LENGTH. By default, reads are not trimmed or filtered")
     p.add_argument("--profile", action="store_true", default=False,
                    help="Write a torch.profiler trace to "
-                        "<outdir>/species/torch_trace.json")
+                        "<outdir>/species/torch_trace.json "
+                        "(torch_trace.rank<R>/ under several ranks)")
     p.add_argument("--seed", type=int, default=42,
                    help="RNG seed for probabilistic assignment of ambiguous reads (42)")
     _add_device_arg(p)
@@ -111,7 +120,8 @@ def _add_shared_align_args(p, mode_default):
                         "the mismatch error to a warning)")
     p.add_argument("--profile", action="store_true", default=False,
                    help="Write a torch.profiler trace to "
-                        "<outdir>/<program>/torch_trace.json")
+                        "<outdir>/<program>/torch_trace.json "
+                        "(torch_trace.rank<R>/ under several ranks)")
     _add_device_arg(p)
     return p
 
@@ -324,8 +334,14 @@ def _check_stage_intermediates(args: dict, program: str) -> None:
 
 
 def main(argv=None):
+    from midas_tpu_torch.dist import driver
+
     args = vars(build_parser().parse_args(argv))
     program = args["program"]
+    # under a launcher (WORLD_SIZE > 1) join its process group first, so
+    # that a rank failing below fails its peers' collectives at once
+    driver.initialize()
+    rank, n_ranks = driver.process_index(), driver.process_count()
     check_database(args.get("db"))
     if isinstance(args.get("species_id"), str):
         args["species_id"] = args["species_id"].split(",")
@@ -347,10 +363,14 @@ def main(argv=None):
         [f"{program}/output"] if program in ("genes", "snps") else [])
     for sub in subs:
         os.makedirs(os.path.join(outdir, sub), exist_ok=True)
-    with open(os.path.join(outdir, program, "readme.txt"), "w") as f:
-        f.write(README[program].format(db=args.get("db")))
+    # only rank 0 writes readme.txt and log.txt (the others compute)
+    if rank == 0:
+        with open(os.path.join(outdir, program, "readme.txt"), "w") as f:
+            f.write(README[program].format(db=args.get("db")))
     start = time()
-    with open(os.path.join(outdir, program, "log.txt"), "w") as log:
+    log_path = (os.path.join(outdir, program, "log.txt") if rank == 0
+                else os.devnull)
+    with open(log_path, "w") as log:
         log.write("command: " + " ".join(sys.argv) + "\n")
         for k in sorted(args):
             log.write(f"{k}: {args[k]}\n")
@@ -371,6 +391,11 @@ def main(argv=None):
                     acts.append(ProfilerActivity.CUDA)
                 # NOT under temp/: --remove_temp deletes it
                 trace = os.path.join(outdir, program, "torch_trace.json")
+                if n_ranks > 1:   # one trace a rank
+                    trace = os.path.join(outdir, program,
+                                         f"torch_trace.rank{rank}",
+                                         "torch_trace.json")
+                    os.makedirs(os.path.dirname(trace), exist_ok=True)
                 with profile(activities=acts) as prof:
                     run(args)
                 prof.export_chrome_trace(trace)

@@ -1,7 +1,7 @@
 """Shared pieces of the per-sample pipelines: species selection
 bookkeeping (genes.py:32-48, snps.py:38-53), the choice of read-batch
-stream (single-end, or mate-paired), the guard against multi-process
-launches, and the host twins of the device best hit and read filters
+stream (single-end, or mate-paired), the test for a multi-process
+launch, and the host twins of the device best hit and read filters
 (keep_read at genes.py:153-169 / snps.py:141-162) over a read-back
 AlignmentResult."""
 
@@ -15,28 +15,22 @@ import numpy as np
 from midas_tpu_torch.align.params import ScoringParams, mapq_from_scores
 from midas_tpu_torch.align.pipeline import AlignmentResult
 from midas_tpu_torch.db.layout import Database
+from midas_tpu_torch.dist.driver import process_count, process_index
 from midas_tpu_torch.io.batch import ReadBatch
 from midas_tpu_torch.profile.species import select_species
 
 
+# reads a device batch in the run_* entry points (the profilers' default)
+BATCH_SIZE = 8192
+
+
 def _multi_process() -> bool:
-    """True under a launcher of several processes (torch.distributed
-    initialized with more than one rank, or WORLD_SIZE > 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size() > 1
-    return int(os.environ.get("WORLD_SIZE", "1")) > 1
-
-
-def require_single_process(program: str) -> None:
-    """Raise under a multi-process launch: every rank would profile the
-    whole input and write the same files (the multi-process paths are
-    not yet ported)."""
-    if _multi_process():
-        raise NotImplementedError(
-            f"multi-process {program} runs are not yet ported to "
-            "midas_tpu_torch")
+    """True under a launch of several processes: a process group of
+    several ranks, however it was joined (driver.initialize from a
+    launcher's environment, or explicitly over tcp://), or a launcher's
+    WORLD_SIZE > 1 before the group exists."""
+    return (process_count() > 1
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
 def resolve_species_list(args: Dict, db: Database, subdir: str) -> List[str]:
@@ -51,9 +45,13 @@ def resolve_species_list(args: Dict, db: Database, subdir: str) -> List[str]:
             species_topn=args.get("species_topn"),
             species_id=args.get("species_id"),
         )
-        with open(splist, "w") as f:
-            for sid in ids:
-                f.write(sid + "\n")
+        # only rank 0 of a multi-process job persists the list (every
+        # rank computes the same ids; concurrent writes to a shared
+        # filesystem race)
+        if process_index() == 0:
+            with open(splist, "w") as f:
+                for sid in ids:
+                    f.write(sid + "\n")
         return ids
     if os.path.isfile(splist):
         with open(splist) as f:

@@ -13,8 +13,9 @@ normalize by the median depth of the species' 15 marker genes
 Reads are single-end, or mate pairs (-1/-2, --interleaved) whose best
 concordant pair fixes both mates' hits (device_steps.
 paired_best_hit_device). Outputs equal midas_tpu's single-device path
-byte for byte (after decompression). Not yet ported: multi-process
-runs.
+byte for byte (after decompression). Under a launch of several
+processes, run_genes routes to the data-parallel driver
+(dist/driver.py), one rank per card.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ from midas_tpu_torch.align.seed import SeedParams
 from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.db.refpack import pack_from_fasta
+from midas_tpu_torch.dist import driver
 from midas_tpu_torch.io.seqio import iopen, parse_file
-from midas_tpu_torch.profile.common import (require_single_process,
+from midas_tpu_torch.profile import common
+from midas_tpu_torch.profile.common import (_multi_process,
                                             resolve_species_list,
                                             select_batches)
 
@@ -142,6 +145,8 @@ class GenesProfiler:
         batches = select_batches(read_paths, batch_size, al.max_read_len,
                                  max_reads, paired, interleaved,
                                  read_length=read_length)
+        if getattr(self, "_batch_filter", None):
+            batches = self._batch_filter(batches)  # multi-process striding
         for db in prefetch_device_batches(
                 batches, ("codes", "quals", "lengths", "mean_qual"),
                 device=dev, skip_batches=skip, trim=trim):
@@ -288,14 +293,22 @@ def _marker_map_path(db: Database):
 def run_genes(args: Dict) -> Optional[GenesProfiler]:
     """The genes pipeline end to end, with the reference output layout
     and per-stage timing/memory prints (genes.py:252-291). args["device"]
-    picks the device (default "cuda"). Single process; reads single-end
-    (-1), mate pairs (-1/-2) or interleaved mate pairs (-1 with
-    --interleaved)."""
+    picks the device (default "cuda"); batches hold common.BATCH_SIZE
+    reads. Reads single-end (-1), mate pairs (-1/-2) or
+    interleaved mate pairs (-1 with --interleaved).
+
+    Under a launch of several processes it routes to the multi-process
+    driver (dist/driver.py), which always runs the full pipeline: stage
+    splits exit there, as in midas_tpu; rank 0 writes the outputs and
+    species.txt, and returns None."""
     from midas_tpu_torch.io.batch import detect_max_read_len
     from midas_tpu_torch.utils import stage_timer
 
-    require_single_process("genes")
+    multi = _multi_process()
+    if multi:
+        driver.initialize()
     device = resolve_device(args.get("device") or "cuda")
+    batch_size = common.BATCH_SIZE
     outdir = args["outdir"]
     log = args.get("log")
     os.makedirs(os.path.join(outdir, "genes/temp"), exist_ok=True)
@@ -317,25 +330,52 @@ def run_genes(args: Dict) -> Optional[GenesProfiler]:
 
     state_path = os.path.join(outdir, "genes/temp/state.npz")
     scan_paths = [p for p in (args.get("m1"), args.get("m2")) if p]
+    max_read_len = (detect_max_read_len(scan_paths, args.get("read_length"))
+                    if scan_paths else 128)
+    paired = bool(args.get("m2")) or bool(args.get("interleaved"))
+    if multi:
+        # the driver always runs the FULL align+cov pipeline; stage
+        # splits and checkpoints are single-process features, and
+        # partial invocations exit rather than do more (or less) than
+        # asked
+        if not (args.get("build_db") and args.get("align")
+                and args.get("cov")):
+            sys.exit("\nError: multi-host genes runs the full pipeline; "
+                     "--build_db/--align/--call_genes stage splits are "
+                     "single-host features\n")
+        with stage_timer("Profiling pangenomes over "
+                         f"{driver.process_count()} ranks", log):
+            driver.run_genes_multihost(
+                db, scan_paths, species_ids, outdir=outdir,
+                batch_size=batch_size, max_reads=args.get("max_reads"),
+                trim=args.get("trim", 0), paired=paired,
+                interleaved=bool(args.get("interleaved")),
+                read_length=args.get("read_length"),
+                mapid=args.get("mapid", 94.0), readq=args.get("readq", 20.0),
+                mapq=args.get("mapq", 0), aln_cov=args.get("aln_cov", 0.75),
+                mode=args.get("mode", "local"), max_read_len=max_read_len,
+                device=device)
+        if args.get("remove_temp") and driver.process_index() == 0:
+            import shutil
+            shutil.rmtree(os.path.join(outdir, "genes/temp"),
+                          ignore_errors=True)
+        return None
+
     with stage_timer("Building pangenome database", log):
         profiler = GenesProfiler(
             db, species_ids,
             mapid=args.get("mapid", 94.0), readq=args.get("readq", 20.0),
             mapq=args.get("mapq", 0), aln_cov=args.get("aln_cov", 0.75),
-            mode=args.get("mode", "local"),
-            max_read_len=detect_max_read_len(scan_paths,
-                                             args.get("read_length"))
-            if scan_paths else 128,
+            mode=args.get("mode", "local"), max_read_len=max_read_len,
             device=device,
         )
     if args.get("align") or args.get("build_db"):
         paths = [args["m1"]]
         if args.get("m2"):
             paths.append(args["m2"])
-        paired = bool(args.get("m2")) or bool(args.get("interleaved"))
         with stage_timer("Aligning reads to pangenomes", log):
             profiler.run(paths, max_reads=args.get("max_reads"),
-                         trim=args.get("trim", 0),
+                         trim=args.get("trim", 0), batch_size=batch_size,
                          paired=paired,
                          interleaved=bool(args.get("interleaved")),
                          read_length=args.get("read_length"),

@@ -20,7 +20,8 @@ then classified with the reference's exact filter semantics:
 
 Output is byte-identical to midas_tpu's single-device path on the same
 inputs, with or without --m8 (the host classifier and the BLAST
-outfmt-6 writer). Not ported yet: multi-host runs.
+outfmt-6 writer). Under a launch of several processes, run_species
+routes to the data-parallel driver (dist/driver.py), one rank per card.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from midas_tpu_torch.align.seed import SeedParams
 from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.layout import Database
 from midas_tpu_torch.db.refpack import pack_from_fasta
+from midas_tpu_torch.dist import driver
 from midas_tpu_torch.io.batch import load_read_batches
 from midas_tpu_torch.io.seqio import parse_file
 
@@ -326,7 +328,11 @@ class SpeciesProfiler:
                 read_length=read_length, max_reads=max_reads,
                 batch_size=batch_size, aln_cov=self.aln_cov,
                 cutoffs=sorted(self.cutoffs.items()),
-                num_cands=C, cap=cap)
+                num_cands=C, cap=cap,
+                # a rank's stride (dist/driver.py::_stride_setup): a
+                # rerun with another rank count must not resume it
+                **({"stride": self._stride}
+                   if getattr(self, "_stride", None) else {}))
             got = ckpt.load(checkpoint_path, fp)
             if got is not None:
                 arrays, meta = got
@@ -346,6 +352,8 @@ class SpeciesProfiler:
             max_len=al.max_read_len,
             read_length=read_length, max_reads=max_reads,
         )
+        if getattr(self, "_batch_filter", None):
+            batches = self._batch_filter(batches)  # multi-process striding
         last_index = skip - 1
         rows_bound = 0   # worst-case spill rows since the last drain
         for db in prefetch_device_batches(batches, ("codes", "lengths"),
@@ -503,26 +511,61 @@ def run_species(args: Dict) -> Dict:
     """The species pipeline end to end, with the reference's output layout
     (species.py:229-269): <outdir>/species/{species_profile.txt,
     temp/read_count.txt, temp/state.npz}. args["device"] picks the
-    device (default "cuda"). Single process.
+    device (default "cuda"); batches hold common.BATCH_SIZE reads.
 
     The default path keeps the whole classifier on the device (no
     per-batch readback). `--m8` opts into writing BLAST outfmt-6 rows to
     temp/alignments.m8, which reads every alignment back to the host and
     writes no temp/state.npz; with --remove_temp it is ignored, as
     midas_tpu ignores it (the m8 file would live under temp/, which that
-    flag deletes)."""
+    flag deletes).
+
+    Under a launch of several processes (torchrun, WORLD_SIZE > 1) it
+    routes to the multi-process driver (dist/driver.py): each rank
+    strides the shared read stream on its card, with its own checkpoint
+    temp/state.rank{rank}.npz, the accumulators merge once at the end
+    and rank 0 writes; --m8 (a per-read host readback) exits there, as
+    in midas_tpu."""
     from midas_tpu_torch.io.batch import detect_max_read_len
-    from midas_tpu_torch.profile.common import require_single_process
+    from midas_tpu_torch.profile import common
     from midas_tpu_torch.utils import stage_timer
 
-    require_single_process("species")
+    multi = common._multi_process()
+    if multi and args.get("m8"):
+        sys.exit("\nError: --m8 requires per-read host readback and "
+                 "is a single-host feature\n")
+    if multi:
+        driver.initialize()
     device = resolve_device(args.get("device") or "cuda")
+    batch_size = common.BATCH_SIZE
     outdir = args["outdir"]
     log = args.get("log")
     os.makedirs(os.path.join(outdir, "species/temp"), exist_ok=True)
     paths = [args["m1"]]
     if args.get("m2"):
         paths.append(args["m2"])
+
+    if multi:
+        pid, pcount = driver.process_index(), driver.process_count()
+        with stage_timer(f"Profiling species over {pcount} ranks", log):
+            abundance = driver.run_species_multihost(
+                args["db"], paths, outdir=outdir, batch_size=batch_size,
+                read_length=args.get("read_length"),
+                max_reads=args.get("max_reads"),
+                seed=args.get("seed", 42), mapid=args.get("mapid"),
+                aln_cov=args.get("aln_cov", 0.75),
+                checkpoint_path=os.path.join(
+                    outdir, f"species/temp/state.rank{pid}.npz"),
+                max_read_len=detect_max_read_len(paths,
+                                                 args.get("read_length")),
+                device=device)
+        if args.get("remove_temp") and pid == 0:
+            # the driver barriers after rank 0's writes, so this runs
+            # only once every rank is done with temp/
+            import shutil
+            shutil.rmtree(os.path.join(outdir, "species/temp"),
+                          ignore_errors=True)
+        return abundance
 
     with stage_timer("Loading marker-gene database", log):
         db = Database(args["db"])
@@ -538,7 +581,8 @@ def run_species(args: Dict) -> Dict:
     with stage_timer("Aligning reads to marker-genes database", log):
         abundance = profiler.run(
             paths, read_length=args.get("read_length"),
-            max_reads=args.get("max_reads"), m8_path=m8_path,
+            max_reads=args.get("max_reads"), batch_size=batch_size,
+            m8_path=m8_path,
             checkpoint_path=os.path.join(outdir, "species/temp/state.npz"),
         )
     with stage_timer("Estimating species abundance", log):

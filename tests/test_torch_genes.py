@@ -26,6 +26,7 @@ from midas_tpu_torch.align.seed import SeedParams as TSeedParams
 from midas_tpu_torch.cli.run_midas import main as t_run_midas
 from midas_tpu_torch.profile import device_steps as tds
 from midas_tpu_torch.profile.genes import run_genes as t_run_genes
+from tests.test_torch_dist import _lone_rank_of_two
 
 # the suite runs files in parallel worker processes: one intra-op
 # thread per worker keeps torch from oversubscribing the cores
@@ -378,8 +379,11 @@ def test_checkpoint_resume_and_call_genes_only(genes_runs, sim_community,
 
 def test_paired_and_multi_process_not_yet_ported(sim_community, sim_reads,
                                                  tmp_path, monkeypatch):
-    """Paired reads (-2, --interleaved) now run; multi-process runs are
-    still not ported and raise."""
+    """Paired reads (-2, --interleaved) run. Multi-process runs are
+    ported now (tests/test_torch_dist.py): under WORLD_SIZE=2, run_genes
+    joins the launcher's process group instead of raising "not yet
+    ported", and a lone rank 0 fails the run once the rendezvous times
+    out, writing nothing (no fallback to a single-process run)."""
     for i, extra in enumerate((["-2", sim_reads[0]], ["--interleaved"])):
         out = str(tmp_path / f"o{i}")
         t_run_midas(["genes", out, "-1", sim_reads[0], "-d",
@@ -387,12 +391,13 @@ def test_paired_and_multi_process_not_yet_ported(sim_community, sim_reads,
                      sim_community.species[0].species_id, "-n", "4",
                      "--device", "cpu"] + extra)
         assert os.path.isfile(os.path.join(out, "genes/summary.txt"))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    _lone_rank_of_two(monkeypatch)
+    with pytest.raises(torch.distributed.DistError, match="1/2 clients"):
         t_run_genes(dict(outdir=str(tmp_path / "p"), db=sim_community.db_dir,
                          m1=sim_reads[0], build_db=True, align=True,
                          cov=True, device="cpu",
                          species_id=[sim_community.species[0].species_id]))
+    assert not os.path.exists(tmp_path / "p")
 
 
 # ---------------------------------------------------------------------------

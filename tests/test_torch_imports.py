@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_midas_tpu():
               "profile.common", "profile.device_steps", "align.pipeline",
               "align.cuda_sw", "align.oracle", "merge", "merge.core",
               "merge.species", "merge.genes", "merge.snps", "utils",
-              "cli.run_midas", "cli.merge_midas"):
+              "cli.run_midas", "cli.merge_midas", "dist", "dist.driver"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
     assert got["bad"] == []
     assert not got["cuda_initialized"]

@@ -3,7 +3,7 @@ gapped-read oracle, one snps_update batch, run_snps end to end in
 -m global and -m local (summary.txt and every decompressed .snps.gz
 byte for byte), the pileup of gapped reads under natural qualities,
 staging drains, checkpoint resume and the --align / --pileup stage
-split; also the species repairs (multi-process guard, --m8 with
+split; also the species repairs (multi-process launch, --m8 with
 --remove_temp). Exact equality throughout."""
 
 import gzip
@@ -32,6 +32,7 @@ from midas_tpu_torch.profile import device_steps as tds
 from midas_tpu_torch.profile import snps as tsnps
 from midas_tpu_torch.profile.snps import SnpsProfiler as TSnpsProfiler
 from midas_tpu_torch.profile.snps import run_snps as t_run_snps
+from tests.test_torch_dist import _lone_rank_of_two
 
 # the suite runs files in parallel worker processes: one intra-op
 # thread per worker keeps torch from oversubscribing the cores
@@ -456,8 +457,11 @@ def test_checkpoint_resume_and_pileup_only(snps_runs, sim_community,
 
 def test_paired_and_multi_process_not_yet_ported(sim_community, indel_reads,
                                                  tmp_path, monkeypatch):
-    """Paired reads (-2, --interleaved, paired=True) now run;
-    multi-process runs are still not ported and raise."""
+    """Paired reads (-2, --interleaved, paired=True) run. Multi-process
+    runs are ported now (tests/test_torch_dist.py): under WORLD_SIZE=2,
+    run_snps joins the launcher's process group instead of raising "not
+    yet ported", and a lone rank 0 fails the run once the rendezvous
+    times out, writing nothing."""
     fq = indel_reads[1]
     sid = sim_community.species[0].species_id
     for i, extra in enumerate((["-2", fq], ["--interleaved"])):
@@ -470,23 +474,29 @@ def test_paired_and_multi_process_not_yet_ported(sim_community, indel_reads,
                          device="cpu")
     got = prof.run([fq], max_reads=4, batch_size=64, paired=True)
     assert got["aligned_reads"].sum() <= 8
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process snps"):
+    _lone_rank_of_two(monkeypatch)
+    with pytest.raises(torch.distributed.DistError, match="1/2 clients"):
         t_run_snps(dict(outdir=str(tmp_path / "p"), db=sim_community.db_dir,
                         m1=fq, build_db=True, align=True, call=True,
                         device="cpu", species_id=[sid]))
+    assert not os.path.exists(tmp_path / "p")
 
 
 # ---------------------------------------------------------------------------
-# species repairs: the multi-process guard and --m8 --remove_temp
+# species repairs: the multi-process launch and --m8 --remove_temp
 # ---------------------------------------------------------------------------
 
 def test_species_multi_process_not_yet_ported(sim_community, sim_reads,
                                               tmp_path, monkeypatch):
+    """Multi-process species runs are ported now (tests/
+    test_torch_dist.py): under WORLD_SIZE=2, run_species joins the
+    launcher's process group instead of raising "not yet ported", and a
+    lone rank 0 fails the run once the rendezvous times out, writing
+    nothing."""
     from midas_tpu_torch.profile.species import run_species
 
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process species"):
+    _lone_rank_of_two(monkeypatch)
+    with pytest.raises(torch.distributed.DistError, match="1/2 clients"):
         run_species(dict(outdir=str(tmp_path / "o"), db=sim_community.db_dir,
                          m1=sim_reads[0], device="cpu"))
     assert not os.path.exists(tmp_path / "o")
