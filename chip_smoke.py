@@ -168,6 +168,32 @@ database and reads and the CLI phases' outputs are on disk):
              rows) and time run_snps_multihost's merge of it
              (merge_snps_accumulators), checked against twice the state.
 
+The tensor-parallel phases (dist/sharded.py, dist/species.py,
+dist/profilers.py: the pack and seed index in 2 shards, both on this
+card), run beside the 1-shard profilers of the phases they follow:
+
+24. tp_step      — after phase 4: distributed_profile_step over 8,192
+             error-free reads of a synthetic 2.05 Mb pack at 2 shards
+             against 1: counts equal and equal to the truth; K1 under
+             GLOBAL scoring with the flat mismatch once a shard, each
+             call held to the plain version.
+25. tp_species   — after phase 5: run_species_multihost(tp=2) over phase
+             3's database and reads: K1 2 x 8, every shard on the card,
+             the profile against the truth and equal to phase 5's; the
+             same reads again for reads/s beside phase 5's, one batch's
+             device step and cross-shard gather, each shard's first-batch
+             K1 call held to the plain version, and 2,048 reads on the
+             card against the same shards on the CPU.
+26. tp_genes     — after phase 16: the genes cell's pangenome at 2 shards
+             beside phase 7's profiler over the first 16,384 reads and
+             8,192 mate pairs: results and files equal, K3 with qpen and
+             K2 2 x 2, device steps, the gather, each shard's first-batch
+             calls held to the plain version; then run_genes_multihost
+             (tp=2) on the card against the CPU at 2,048 reads.
+27. tp_snps      — after phase 17: the same for the snps cell (counts,
+             counters and gapped rows equal; the stripe readback timed),
+             then run_snps_multihost(tp=2) -m global card vs CPU.
+
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
@@ -175,9 +201,10 @@ genes launches), banded_sw_k2 (K2 on the packed kernel, timed at genes
 pass 2, genes launches), banded_sw_template (the template kernel,
 timed on the above-the-limit check, launched on no path),
 banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
-launches) and banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2,
-snps launches), each with every path's launches (the paired, m8,
-merge and multirank paths' among them), and as the last line
+launches), banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2, snps
+launches) and banded_sw_k1_glocal (K1 GLOBAL, timed at tp_step, its
+launches), each with every path's launches (the paired, m8, merge,
+multirank and tp paths' among them), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -546,11 +573,27 @@ def phase_main(prof, fq, truth):
              f"{n_batches} batches (want K1 only, once per batch)")
     out = os.path.join(WORK, "main_species_profile.txt")
     write_abundance(out, abundance)
+    counted, in_first, stray, truth_first = _species_truth(abundance, truth)
 
-    # the repo's own check: the simulator's truth. Reads come from the
-    # first N_ABUNDANT species; the related species are copies of species
-    # 1 at 3% divergence and may take its ambiguous reads; no other
-    # species may get any.
+    # device time of one batch's update, and where it goes (CUDA events)
+    step_ms, stages = _device_step(prof, fq)
+    emit("main", reads=N_READS, batch=BATCH, batches=n_batches,
+         seconds=dt, reads_per_sec=N_READS / dt, banded_sw_launches=launches,
+         device_step_ms=step_ms, device_busy_share=step_ms * n_batches / 1e3 / dt,
+         stage_ms=stages, max_memory_allocated=peak, counted_reads=counted,
+         counted_in_abundant=in_first, truth_reads_abundant=truth_first,
+         stray_reads=stray, total_alns=prof.stats["total_alns"])
+    return dict(launches=launches, abundance=abundance,
+                stats=dict(prof.stats), reads_per_sec=N_READS / dt,
+                device_step_ms=step_ms)
+
+
+def _species_truth(abundance, truth):
+    """The repo's own check: the simulator's truth. Reads come from the
+    first N_ABUNDANT species; the related species are copies of species
+    1 at 3% divergence and may take its ambiguous reads; no other
+    species may get any. Returns (reads counted, counted in the first
+    N_ABUNDANT, stray reads, true reads of the first N_ABUNDANT)."""
     ids = list(abundance)
     counts = np.array([abundance[s]["count"] for s in ids])
     vals = np.array([[abundance[s]["cov"], abundance[s]["rel_abun"]]
@@ -570,17 +613,7 @@ def phase_main(prof, fq, truth):
             or min(abundance[s]["count"] for s in ids[1:N_ABUNDANT]) == 0:
         fail(f"profile disagrees with the truth: counted={counted}, "
              f"in_first={in_first}, stray={stray}")
-
-    # device time of one batch's update, and where it goes (CUDA events)
-    step_ms, stages = _device_step(prof, fq)
-    emit("main", reads=N_READS, batch=BATCH, batches=n_batches,
-         seconds=dt, reads_per_sec=N_READS / dt, banded_sw_launches=launches,
-         device_step_ms=step_ms, device_busy_share=step_ms * n_batches / 1e3 / dt,
-         stage_ms=stages, max_memory_allocated=peak, counted_reads=counted,
-         counted_in_abundant=in_first, truth_reads_abundant=truth_first,
-         stray_reads=stray, total_alns=prof.stats["total_alns"])
-    return dict(launches=launches, abundance=abundance,
-                stats=dict(prof.stats), reads_per_sec=N_READS / dt)
+    return counted, in_first, stray, truth_first
 
 
 def _device_step(prof, fq):
@@ -2247,6 +2280,481 @@ def phase_multirank(comm, fq, smi_line):
     return by_path
 
 
+# the tensor-parallel phases: profilers whose pack and seed index are held
+# as TP shards (dist/sharded.py::shard_devices), all on this one card
+TP = 2
+N_TP_READS = 16384      # tp_genes / tp_snps: the reads cut, no database
+TP_STEP_SEQS, TP_STEP_LEN = 256, 8000   # tp_step's synthetic 2.05 Mb pack
+
+
+def _shard_figures(al, phase):
+    """Each shard's device, first sequence, pack offset and bytes on the
+    card; fails unless every shard is on the card."""
+    out = []
+    for sh in al.shards:
+        if sh.device.type != "cuda":
+            fail(f"{phase}: a shard is on {sh.device}, not on the card")
+        out.append(dict(
+            device=str(sh.device), seq_base=sh.seq_base, pack_offset=sh.base,
+            index_bytes=sum(t.numel() * t.element_size()
+                            for t in sh.index_arrays.values()),
+            pack_bytes=sum(t.numel() * t.element_size()
+                           for t in sh.pack_arrays.values())))
+    return out
+
+
+def _cpu_twin(prof):
+    """A shallow copy of a sharded profiler with its shards' arrays copied
+    to the CPU, where the wrappers run the plain versions."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    cpu = torch.device("cpu")
+    twin, al = copy.copy(prof), copy.copy(prof.aligner)
+    al.shards = [dataclasses.replace(
+        sh, device=cpu,
+        index_arrays={k: v.cpu() for k, v in sh.index_arrays.items()},
+        pack_arrays={k: v.cpu() for k, v in sh.pack_arrays.items()})
+        for sh in prof.aligner.shards]
+    al.device = twin.device = cpu
+    twin.aligner = al
+    return twin
+
+
+def _shard_variants(calls, plan, sc, sname, path, phase):
+    """Hold each captured DP call of one sharded step to the plain
+    version. plan: per call (variant name, score_only, pass label), in
+    launch order. Emits `phase` per record; returns the records."""
+    from midas_tpu_torch.align import cuda_sw
+
+    if len(calls) != len(plan):
+        fail(f"{path} launched the DP {len(calls)} times, want {len(plan)}")
+    layout = cuda_sw.packed_layout()
+    out = []
+    for j, ((p, k), (kname, so, label)) in enumerate(zip(calls, plan)):
+        if k["score_only"] != so:
+            fail(f"{path}: launch {j} is not {kname}")
+        v = _check_variant(kname, sname, sc, *p[:3], k["qpen"], so, layout,
+                           shape=f"{path} {label}")
+        v.pop("_out")
+        emit(phase, **v)
+        out.append(v)
+    return out
+
+
+def phase_tp_step(smi_line):
+    """dist/sharded.py::distributed_profile_step over one batch of 8,192
+    error-free 100 bp reads from a synthetic 2.05 Mb pack (256 random
+    contigs), at tp = 2 against tp = 1 on this card: per-contig counts
+    and bp equal, and equal to the truth; K1 under GLOBAL scoring with
+    the flat mismatch (the step's own DP, no other caller) once a shard,
+    each shard's call held to the plain version. Returns (launches,
+    variant records)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align.params import GLOBAL_SCORING
+    from midas_tpu_torch.align.seed import SeedParams
+    from midas_tpu_torch.db.refpack import build_pack
+    from midas_tpu_torch.dist.sharded import (distributed_profile_step,
+                                              shard_devices, shard_index)
+
+    rng = np.random.default_rng(21)
+    letters = np.array(list("ACGT"))
+    pack = build_pack([(f"ctg{s}", "".join(letters[rng.integers(
+        0, 4, TP_STEP_LEN)])) for s in range(TP_STEP_SEQS)])
+    origin = rng.integers(0, TP_STEP_SEQS, BATCH)
+    starts = pack.offsets[origin] + rng.integers(0, TP_STEP_LEN - 99, BATCH)
+    codes = np.full((BATCH, 128), 4, np.int8)
+    codes[:, :100] = pack.codes[starts[:, None] + np.arange(100)]
+    codes_t = torch.from_numpy(codes).cuda()
+    qlens_t = torch.full((BATCH,), 100, dtype=torch.int32, device="cuda")
+    sp = SeedParams()
+    steps, res, launches, ms = {}, {}, {}, {}
+    for tp in (1, TP):
+        devices = shard_devices(tp, "cuda")
+        pc, idx, off, _base, sb = shard_index(pack, tp=tp, k=sp.k)
+        on = [torch.device(d) for d in devices]
+        args = ([torch.from_numpy(pc[j]).to(d) for j, d in enumerate(on)],
+                {k: [torch.from_numpy(v[j]).to(d) for j, d in enumerate(on)]
+                 for k, v in idx.items()},
+                [torch.from_numpy(off[j].astype(np.int64)).to(d)
+                 for j, d in enumerate(on)], sb)
+
+        def step(args=args, devices=devices):
+            return distributed_profile_step(
+                codes_t, qlens_t, *args, GLOBAL_SCORING, sp, 128,
+                pack.num_seqs, devices=devices)
+
+        steps[tp] = step
+        cuda_sw.LAUNCHES.clear()
+        out = step()
+        res[tp] = {k: v.cpu().numpy() for k, v in out.items()}
+        launches[tp] = dict(cuda_sw.LAUNCHES)
+        ms[tp], _ = cuda_ms(step, 5)
+        if launches[tp] != {"K1": tp}:
+            fail(f"tp_step at tp = {tp} launched {launches[tp]}")
+    truth = np.bincount(origin, minlength=TP_STEP_SEQS)
+    for tp in (1, TP):
+        if not (np.array_equal(res[tp]["counts"], truth)
+                and int(res[tp]["bp"].sum()) == 100 * BATCH
+                and int(res[tp]["aligned_reads"]) == BATCH):
+            fail(f"tp_step at tp = {tp}: counts disagree with the truth")
+    variants = _shard_variants(
+        _captured_dp_calls(steps[TP]),
+        [("K1", False, f"shard {j}") for j in range(TP)], GLOBAL_SCORING,
+        "global", "tp step", "tp_step_kernels")
+    emit("tp_step", reads=BATCH, contigs=TP_STEP_SEQS,
+         pack_mb=pack.total_len / 1e6, tp=TP, banded_sw_launches=launches[TP],
+         launches_tp1=launches[1], step_ms={str(k): v for k, v in ms.items()},
+         counts_equal_tp1=True, counts_equal_truth=True, card=smi_line)
+    return launches[TP], variants
+
+
+def phase_tp_species(comm, fq, truth, main, smi_line):
+    """run_species_multihost(tp=2) over phase 3's database and 65,536
+    reads (batch 8,192) on this card: K1 2 x 8, every shard on the card,
+    the profile against the truth and equal to phase main's (tp = 1:
+    the CPU tests find tp = 2 = tp = 1 on sim_community and on a
+    community whose tie sets differ); then on the same profiler the
+    reads again, warm, for reads/s beside phase main's, one batch's
+    device step and the cross-shard gather, the first batch's K1 calls
+    held to the plain version, and 2,048 reads on the card against the
+    same shards on the CPU. Returns (launches, variant records)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.align.params import MARKER_SCORING
+    from midas_tpu_torch.align.pipeline import _align_batch_stages
+    from midas_tpu_torch.dist import driver
+    from midas_tpu_torch.dist.species import (_CLASSIFY_KEYS,
+                                              DistributedSpeciesProfiler,
+                                              gather_tables)
+    from midas_tpu_torch.io.batch import load_read_batches
+    from midas_tpu_torch.profile import device_steps as ds
+    from midas_tpu_torch.profile.species import write_abundance
+
+    made, stage = [], []
+    real_init = DistributedSpeciesProfiler.__init__
+    real_run = DistributedSpeciesProfiler._run_device
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        made.append(self)
+
+    def run_device(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return real_run(self, *a, **k)
+        finally:
+            torch.cuda.synchronize()
+            stage.append(time.perf_counter() - t)
+
+    DistributedSpeciesProfiler.__init__ = init
+    DistributedSpeciesProfiler._run_device = run_device
+    out = os.path.join(WORK, "tp_species")
+    try:
+        cuda_sw.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        abundance = driver.run_species_multihost(
+            comm.db_dir, [fq], outdir=out, tp=TP, batch_size=BATCH,
+            device="cuda")
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_sw.LAUNCHES)
+    finally:
+        DistributedSpeciesProfiler.__init__ = real_init
+        DistributedSpeciesProfiler._run_device = real_run
+    n_batches = -(-N_READS // BATCH)
+    if launches != {"K1": TP * n_batches}:
+        fail(f"tp_species launched {launches} for {n_batches} batches "
+             f"(want K1 {TP} x {n_batches})")
+    prof = made[0]
+    al = prof.aligner
+    shards = _shard_figures(al, "tp_species")
+    counted, in_first, stray, _ = _species_truth(abundance, truth)
+    differ = sorted(s for s in abundance
+                    if abundance[s] != main["abundance"][s])
+    if differ:
+        fail(f"tp_species: {len(differ)} species differ from phase main's "
+             f"tp = 1 profile, e.g. {differ[:3]}")
+    with open(os.path.join(WORK, "main_species_profile.txt"), "rb") as f, \
+            open(os.path.join(out, "species/species_profile.txt"), "rb") as g:
+        if f.read() != g.read():
+            fail("tp_species: species_profile.txt differs from phase main's")
+
+    # warm: the same reads on the same profiler, timed as phase main is
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    again = prof.run([fq], batch_size=BATCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if again != abundance:
+        fail("tp_species: a second run on the same profiler differs")
+
+    # one batch: the device step, the gather, the K1 calls per shard
+    b = next(iter(load_read_batches([fq], batch_size=BATCH,
+                                    max_len=al.max_read_len)))
+    codes = torch.from_numpy(b.codes).cuda()
+    qlens = torch.from_numpy(b.lengths).cuda()
+    n_species = len(prof.species_order)
+    state = ds.species_init(n_species, prof._amb_width(), 2 * BATCH,
+                            prof.device)
+    seq_species = torch.from_numpy(prof.seq_species).cuda()
+    seq_cutoff = torch.from_numpy(prof.seq_cutoff).cuda()
+    min_score = torch.from_numpy(MARKER_SCORING.evalue_min_score(
+        np.maximum(np.arange(al.max_read_len + 1), 1),
+        float(prof.pack.total_len))).cuda()
+
+    def step():
+        state.amb_n.zero_()
+        prof._species_step(state, seq_species, seq_cutoff, codes, qlens,
+                           b.n_reads, 0, min_score)
+
+    step_ms, _ = cuda_ms(step, 5)
+    outs = [_align_batch_stages(sh.index_arrays, sh.pack_arrays, codes, qlens,
+                                al.scoring, al.seed_params, al.max_read_len)
+            for sh in al.shards]
+    gather_ms, _ = cuda_ms(lambda: gather_tables(al.shards, outs,
+                                                 _CLASSIFY_KEYS), 5)
+    variants = _shard_variants(
+        _captured_dp_calls(step),
+        [("K1", False, f"shard {j}") for j in range(TP)], al.scoring,
+        "marker", "tp species", "tp_species_kernels")
+
+    # the card against the same shards on the CPU, at 2,048 reads
+    files, secs = {}, {}
+    for dev, p in (("cuda", prof), ("cpu", _cpu_twin(prof))):
+        cuda_sw.LAUNCHES.clear()
+        t = time.perf_counter()
+        ab = p.run([fq], max_reads=N_CPU_READS, batch_size=BATCH)
+        secs[dev] = time.perf_counter() - t
+        if (dev == "cpu") == bool(cuda_sw.LAUNCHES):
+            fail(f"tp_species at 2,048 reads on {dev} launched "
+                 f"{dict(cuda_sw.LAUNCHES)}")
+        d = os.path.join(WORK, f"tp_species_{dev}")
+        os.makedirs(os.path.join(d, "species/temp"), exist_ok=True)
+        write_abundance(os.path.join(d, M8_OUTPUTS[0]), ab)
+        with open(os.path.join(d, M8_OUTPUTS[1]), "w") as f:
+            f.write(f"{p.stats['total_reads']}\t{p.stats['total_bp']}")
+        files[dev] = d
+    _same_files(files["cuda"], files["cpu"], M8_OUTPUTS[:2],
+                "tp_species at 2,048 reads, card vs CPU")
+    emit("tp_species", reads=N_READS, batch=BATCH, batches=n_batches, tp=TP,
+         entry_point_seconds=wall, setup_seconds=wall - stage[0],
+         profile_seconds=stage[0], seconds=dt, reads_per_sec=N_READS / dt,
+         main_reads_per_sec=main["reads_per_sec"],
+         reads_per_sec_over_main=N_READS / dt / main["reads_per_sec"],
+         banded_sw_launches=launches, device_step_ms=step_ms,
+         main_device_step_ms=main["device_step_ms"],
+         device_busy_share=step_ms * n_batches / 1e3 / dt,
+         gather_ms=gather_ms, max_memory_allocated=peak, shards=shards,
+         counted_reads=counted, counted_in_abundant=in_first,
+         stray_reads=stray, species_differing_from_tp1=len(differ),
+         cpu_identical=True, cpu_check_seconds=secs, card=smi_line)
+    return launches, variants
+
+
+def _tp_cli_check(comm, fq, program, mode, smi_line):
+    """run_<program>_multihost(tp=2) over 2,048 reads of the phase-3
+    community's first 20 species, on the card and on the CPU: every
+    output file identical, the CPU run launching nothing. Returns (the
+    card run's launches, seconds per device)."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.dist import driver
+
+    ids = [sp.species_id for sp in comm.species[:N_GENES_CPU_SPECIES]]
+    fn = getattr(driver, f"run_{program}_multihost")
+    outs, secs, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(WORK, f"tp_{program}_cli_{dev}")
+        cuda_sw.LAUNCHES.clear()
+        t = time.perf_counter()
+        fn(comm.db_dir, [fq], ids, outdir=outs[dev], tp=TP,
+           max_reads=N_CPU_READS, mode=mode, device=dev)
+        secs[dev] = time.perf_counter() - t
+        launches[dev] = dict(cuda_sw.LAUNCHES)
+    n_b = -(-N_CPU_READS // BATCH)
+    if launches != {"cuda": {"K3_qpen": TP * n_b, "K2": TP * n_b},
+                    "cpu": {}}:
+        fail(f"tp {program} at 2,048 reads launched {launches}")
+    names = sorted(os.listdir(os.path.join(outs["cuda"], program, "output")))
+    _same_files(outs["cuda"], outs["cpu"], [f"{program}/summary.txt"] + [
+        f"{program}/output/{n}" for n in names],
+        f"tp {program} -m {mode} at 2,048 reads, card vs CPU")
+    return launches["cuda"], secs
+
+
+def _tp_two_pass(phase, path, tprof, prof, reads, fields, keys, smi_line,
+                 extra_timer=None):
+    """The body of tp_genes / tp_snps: the sharded profiler tprof (tp = 2)
+    and the single-device profiler prof over the first N_TP_READS reads
+    (and mate pairs `reads`), results equal array by array; K3 with qpen
+    and K2 2 x batches; one batch's sharded step against prof's, the
+    gather, each shard's two DP calls on the first batch held to the
+    plain version. Returns (figures, launches, variant records)."""
+    import torch
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.dist.profilers import (_GATHER_KEYS,
+                                                _local_and_gathered)
+    from midas_tpu_torch.dist.species import gather_tables
+    from midas_tpu_torch.profile import device_steps as ds
+
+    fq, pairs = reads
+    al = tprof.aligner
+    tprof.run([fq], max_reads=BATCH, batch_size=BATCH)     # warm-up
+    n_b = N_TP_READS // BATCH
+    runs = {}
+    for name, p, paths, paired in (
+            ("tp2", tprof, [fq], False), ("tp1", prof, [fq], False),
+            ("tp2_paired", tprof, list(pairs), True),
+            ("tp1_paired", prof, list(pairs), True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_sw.LAUNCHES.clear()
+        t = time.perf_counter()
+        res = p.run(paths, max_reads=N_TP_READS // (2 if paired else 1),
+                    batch_size=BATCH, paired=paired)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        runs[name] = dict(res=res, seconds=dt, reads_per_sec=N_TP_READS / dt,
+                          launches=dict(cuda_sw.LAUNCHES),
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        t_ = TP if name.startswith("tp2") else 1
+        if runs[name]["launches"] != {"K3_qpen": t_ * n_b, "K2": t_ * n_b}:
+            fail(f"{phase} ({name}) launched {runs[name]['launches']} for "
+                 f"{n_b} batches")
+    for a, b in (("tp2", "tp1"), ("tp2_paired", "tp1_paired")):
+        for k in keys:
+            if not np.array_equal(np.asarray(runs[a]["res"][k]),
+                                  np.asarray(runs[b]["res"][k])):
+                fail(f"{phase}: {k} at tp = {TP} differs from tp = 1 ({a})")
+    b, arrays = _first_batch(al, fq, fields)
+    table = torch.from_numpy(ds.score_min_table(al.scoring,
+                                                al.max_read_len)).cuda()
+    if path == "tp genes":
+        def make(p):
+            st = ds.genes_init(p.pack.num_seqs, "cuda")
+            return lambda: p._genes_step(st, *arrays, b.n_reads, table, False)
+    else:
+        cs = torch.from_numpy(prof.contig_species.astype(np.int64)).cuda()
+
+        def make(p):
+            st = p._init_state(2 * BATCH)
+            return lambda: p._snps_step(st, cs, *arrays, b.n_reads, table,
+                                        False)
+    step_fns = [make(p) for p in (tprof, prof)]
+    (step_ms, _), (step1_ms, _) = (cuda_ms(f, 5) for f in step_fns)
+    codes, quals, qlens = arrays[0], arrays[1], arrays[2]
+    locs, _ = _local_and_gathered(al.shards, codes, qlens, al.scoring,
+                                  al.seed_params, al.max_read_len, quals=quals)
+    gather_ms, _ = cuda_ms(lambda: gather_tables(
+        al.shards, [loc[0] for loc in locs], _GATHER_KEYS), 5)
+    sname = "local" if al.scoring.mode == "local" else "global"
+    variants = _shard_variants(
+        _captured_dp_calls(step_fns[0]),
+        [("K3", True, f"pass 1 shard {j}") for j in range(TP)]
+        + [("K2", False, f"pass 2 shard {j}") for j in range(TP)],
+        al.scoring, sname, path, f"{phase}_kernels")
+    figures = dict(
+        reads=N_TP_READS, batch=BATCH, batches=n_b, tp=TP,
+        **{f"{name}_{k}": r[k] for name, r in runs.items()
+           for k in ("seconds", "reads_per_sec", "launches",
+                     "max_memory_allocated")},
+        reads_per_sec_tp2_over_tp1=runs["tp2"]["reads_per_sec"]
+        / runs["tp1"]["reads_per_sec"],
+        device_step_ms=step_ms, device_step_ms_tp1=step1_ms,
+        gather_ms=gather_ms, equal_to_tp1=True,
+        shards=_shard_figures(al, phase), card=smi_line)
+    return figures, runs["tp2"]["launches"], variants
+
+
+def phase_tp_genes(gcomm, gprof, gfq, pairs, comm, fq, smi_line):
+    """The genes cell's 10-species pangenome (52,240 centroids) at tp = 2
+    on this card, beside phase genes_main's tp = 1 profiler, over the
+    first 16,384 reads and 8,192 mate pairs (_tp_two_pass), then
+    run_genes_multihost(tp=2) card against CPU at 2,048 reads.
+    Returns (launches by path, variant records)."""
+    import torch
+
+    from midas_tpu_torch.db.layout import Database
+    from midas_tpu_torch.dist.profilers import DistributedGenesProfiler
+
+    t = time.perf_counter()
+    tprof = DistributedGenesProfiler(Database(gcomm.db_dir),
+                                     gprof.species_ids, tp=TP, device="cuda")
+    setup = time.perf_counter() - t
+    figures, launches, variants = _tp_two_pass(
+        "tp_genes", "tp genes", tprof, gprof, (gfq, pairs),
+        ("codes", "quals", "lengths", "mean_qual"),
+        ("aligned_reads", "mapped_reads", "depth", "copies", "marker_cov"),
+        smi_line)
+    # the written files, at tp = 2 and tp = 1, from the single-end runs
+    tprof.run([gfq], max_reads=N_TP_READS, batch_size=BATCH)
+    gprof.run([gfq], max_reads=N_TP_READS, batch_size=BATCH)
+    dirs = [os.path.join(WORK, f"tp_genes_{n}") for n in ("tp2", "tp1")]
+    for p, d in zip((tprof, gprof), dirs):
+        p.write_results(d)
+    _same_files(dirs[0], dirs[1], ["genes/summary.txt"] + [
+        f"genes/output/{n}" for n in sorted(os.listdir(
+            os.path.join(dirs[1], "genes/output")))],
+        "tp_genes files, tp = 2 vs tp = 1")
+    del tprof
+    torch.cuda.empty_cache()
+    cli_launches, cli_secs = _tp_cli_check(comm, fq, "genes", "local",
+                                           smi_line)
+    emit("tp_genes", setup_seconds=setup, files_equal_tp1=True,
+         cli_identical=True, cli_seconds=cli_secs, **figures)
+    return {"tp_genes": launches, "tp_genes_cli": cli_launches}, variants
+
+
+def phase_tp_snps(gcomm, sprof, gfq, pairs, comm, fq, smi_line):
+    """The snps cell's 10 species (30 Mb, two count stripes) at tp = 2 on
+    this card, beside phase snps_main's tp = 1 profiler, over the first
+    16,384 reads and 8,192 mate pairs: counts, counters and gapped rows
+    equal (_tp_two_pass), the end-of-stream stripe readback timed; then
+    run_snps_multihost(tp=2) -m global card against CPU at 2,048 reads.
+    Returns (launches by path, variant records)."""
+    import torch
+
+    from midas_tpu_torch.db.layout import Database
+    from midas_tpu_torch.dist.profilers import DistributedSnpsProfiler
+
+    t = time.perf_counter()
+    tprof = DistributedSnpsProfiler(Database(gcomm.db_dir),
+                                    sprof.species_ids, tp=TP, device="cuda")
+    setup = time.perf_counter() - t
+    readback = []
+    real = tprof._state_host
+
+    def state_host(state):
+        t = time.perf_counter()
+        try:
+            return real(state)
+        finally:
+            readback.append(time.perf_counter() - t)
+
+    tprof._state_host = state_host
+    figures, launches, variants = _tp_two_pass(
+        "tp_snps", "tp snps", tprof, sprof, (gfq, pairs),
+        ("codes", "quals", "lengths", "mean_qual"),
+        ("counts", "aligned_reads", "mapped_reads", "n_gapped"), smi_line)
+    stripes = [dict(real_len=int(n), bytes=4 * 4 * (tprof.stripe_len + 1))
+               for n in tprof.stripe_real]
+    del tprof
+    torch.cuda.empty_cache()
+    cli_launches, cli_secs = _tp_cli_check(comm, fq, "snps", "global",
+                                           smi_line)
+    emit("tp_snps", setup_seconds=setup, stripes=stripes,
+         stripe_readback_seconds=readback, cli_identical=True,
+         cli_seconds=cli_secs, **figures)
+    return {"tp_snps": launches, "tp_snps_cli": cli_launches}, variants
+
+
 def kernels_line(variants, by_path, smi_line):
     """The kernels line: one entry per kernel the paths run, timed at its
     path's shape, with its path's launches — banded_sw (K1, packed, at
@@ -2258,7 +2766,11 @@ def kernels_line(variants, by_path, smi_line):
     m8 path's K1 record, "m8 path batch", sit in their kernels'
     variants)."""
     for v in variants:
-        path = ("species" if v["shape"] == "main path batch" else
+        tp_path = next((p for p in ("tp step", "tp species", "tp genes",
+                                    "tp snps") if v["shape"].startswith(p)),
+                       None)
+        path = (tp_path.replace(" ", "_") if tp_path else
+                "species" if v["shape"] == "main path batch" else
                 "species_m8" if v["shape"] == "m8 path batch" else
                 "paired_genes" if v["shape"].startswith("paired genes") else
                 "paired_snps" if v["shape"].startswith("paired snps") else
@@ -2302,6 +2814,9 @@ def kernels_line(variants, by_path, smi_line):
               scorings=("global",)),
         entry("banded_sw_k2_glocal", group("packed", "K2"), "snps pass 2",
               by_path["snps"].get("K2", 0), scorings=("global",)),
+        entry("banded_sw_k1_glocal", group("packed", "K1"),
+              "tp step shard 0", by_path["tp_step"].get("K1", 0),
+              scorings=("global",)),
     ]}
 
 
@@ -2315,7 +2830,13 @@ def main():
     phase_build()
     comm, fq, truth, prof = phase_data()
     variants = phase_kernels(prof, fq)
+    tp_step_launches, tp_variants = phase_tp_step(smi_line)
+    variants += tp_variants
     main_run = phase_main(prof, fq, truth)
+    tp_species_launches, tp_variants = phase_tp_species(comm, fq, truth,
+                                                        main_run, smi_line)
+    variants += tp_variants
+    torch.cuda.empty_cache()
     m8_launches, m8_variant = phase_species_m8(prof, fq, main_run, smi_line)
     variants.append(m8_variant)
     phase_cpu_vs_card(comm, fq)
@@ -2330,6 +2851,9 @@ def main():
     paired_genes_launches, paired_variants = phase_paired_genes_main(
         gcomm, gprof, pairs, smi_line)
     variants += paired_variants
+    tp_genes_launches, tp_variants = phase_tp_genes(gcomm, gprof, gfq, pairs,
+                                                    comm, fq, smi_line)
+    variants += tp_variants
     del gprof
     torch.cuda.empty_cache()
     sprof = phase_snps_data(gcomm)
@@ -2338,6 +2862,9 @@ def main():
     paired_snps_launches, paired_variants = phase_paired_snps_main(
         gcomm, sprof, pairs, smi_line)
     variants += paired_variants
+    tp_snps_launches, tp_variants = phase_tp_snps(gcomm, sprof, gfq, pairs,
+                                                  comm, fq, smi_line)
+    variants += tp_variants
     del sprof
     torch.cuda.empty_cache()
     snps_cli = phase_snps_cpu(comm, fq)
@@ -2355,7 +2882,9 @@ def main():
                "paired_cli_snps": paired_cli["snps"]["card_launches"],
                "species_m8": m8_launches, "m8_cli": m8_cli_launches,
                "merge_cli": merge_cli_launches,
-               "merge_main": merge_main_launches, **multirank_launches}
+               "merge_main": merge_main_launches, **multirank_launches,
+               "tp_step": tp_step_launches, "tp_species": tp_species_launches,
+               **tp_genes_launches, **tp_snps_launches}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -238,6 +238,28 @@ def _window_seq_bounds(pack_offsets: torch.Tensor, winstart: torch.Tensor,
     return seq_idx, pack_offsets[seq_idx], pack_offsets[seq_idx + 1]
 
 
+def gather_windows(
+    pack_codes: torch.Tensor,    # [G] int8
+    pack_offsets: torch.Tensor,  # [S+1] int64
+    winstart: torch.Tensor,      # [B, C] int64 global pack coords
+    window_len: int,
+    center: torch.Tensor = None,  # see gather_windows_packed
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference windows gathered base by base from the unpacked pack
+    codes, masked to code 4 outside the owning sequence (the element
+    gather that dist/sharded.py's profiling step uses; the profilers use
+    gather_windows_packed).
+
+    Returns (ref_win [B, C, W] int8, seq_idx [B, C] int64)."""
+    W = window_len
+    seq_idx, seq_lo, seq_hi = _window_seq_bounds(pack_offsets, winstart, W,
+                                                 center=center)
+    pos = winstart[:, :, None] + torch.arange(W, device=winstart.device)
+    in_seq = (pos >= seq_lo[:, :, None]) & (pos < seq_hi[:, :, None])
+    gathered = pack_codes[pos.clamp(0, pack_codes.shape[0] - 1)]
+    return gathered.masked_fill(~in_seq, 4), seq_idx
+
+
 def gather_windows_packed(
     pack_words: torch.Tensor,    # [NW] int64 holding uint32, 16 bases/word
     pack_nmask: torch.Tensor,    # [NW] int64, bit j = base j is a sentinel

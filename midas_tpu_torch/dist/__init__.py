@@ -1,3 +1,9 @@
 """Multi-process runs of the per-sample pipelines on torch.distributed,
-one rank per card (dist/driver.py). Sharding the seed index across cards
-(tensor parallelism) is not ported."""
+one rank per card set (dist/driver.py), and tensor parallelism: the
+pack and seed index sharded across devices (dist/sharded.py,
+dist/species.py, dist/profilers.py)."""
+from midas_tpu_torch.dist.sharded import (
+    distributed_profile_step,
+    shard_devices,
+    shard_index,
+)

@@ -22,8 +22,11 @@ read stream:
   rank computes the same result and rank 0 writes it.
 
 The per-batch path is free of collectives: the only bytes between ranks
-are the end-of-stream merge. Sharding the seed index itself across
-cards (tensor parallelism, midas_tpu's dist/sharded.py) is not ported.
+are the end-of-stream merge. With tp > 1 each rank's profiler holds its
+pack and seed index as tp shards across a list of devices, driven by
+the rank's one process (tensor parallelism: dist/sharded.py,
+dist/species.py, dist/profilers.py), as midas_tpu's local mesh does;
+striding and the merges are the same.
 """
 
 from __future__ import annotations
@@ -258,18 +261,12 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def _check_tp(tp: int) -> None:
+def _make_local_profiler(cls_single, cls_dist, db, species_ids, tp, kw):
+    """This rank's profiler: on its one card, or with tp > 1 over tp
+    shards of the pack and index (dist/sharded.py::shard_devices)."""
     if tp > 1:
-        raise NotImplementedError(
-            "tp sharding (the seed index split across cards) is not yet "
-            "ported to midas_tpu_torch (ROADMAP item 15b); each rank "
-            "drives one card")
-
-
-def _make_local_profiler(cls, db, species_ids, tp, kw):
-    """This rank's profiler, on its one card."""
-    _check_tp(tp)
-    return cls(db, species_ids, **kw)
+        return cls_dist(db, species_ids, tp=tp, **kw)
+    return cls_single(db, species_ids, **kw)
 
 
 def _stride_setup(prof, read_paths, pid, pcount, paired: bool = False,
@@ -316,13 +313,15 @@ def run_genes_multihost(
     midas/utility.py:81-107) — no per-batch traffic. Every rank computes
     the same results; rank 0 writes genes/output/*.genes.gz +
     summary.txt when outdir is given."""
+    from midas_tpu_torch.dist.profilers import DistributedGenesProfiler
     from midas_tpu_torch.profile.genes import GenesProfiler
 
     db = _database(db)
     pid, pcount = process_index(), process_count()
     if isinstance(read_paths, str):
         read_paths = [read_paths]
-    prof = _make_local_profiler(GenesProfiler, db, species_ids, tp,
+    prof = _make_local_profiler(GenesProfiler, DistributedGenesProfiler, db,
+                                species_ids, tp,
                                 dict(profiler_kw, device=device))
     my_paths = _stride_setup(prof, read_paths, pid, pcount,
                              paired=paired, max_reads=max_reads)
@@ -352,13 +351,15 @@ def run_snps_multihost(
     needs to be deterministic). Matches the reference's line-range shard
     merge (midas/merge/snps.py:366-386) with collectives instead of temp
     files. Rank 0 writes snps/output/*.snps.gz + summary.txt."""
+    from midas_tpu_torch.dist.profilers import DistributedSnpsProfiler
     from midas_tpu_torch.profile.snps import SnpsProfiler
 
     db = _database(db)
     pid, pcount = process_index(), process_count()
     if isinstance(read_paths, str):
         read_paths = [read_paths]
-    prof = _make_local_profiler(SnpsProfiler, db, species_ids, tp,
+    prof = _make_local_profiler(SnpsProfiler, DistributedSnpsProfiler, db,
+                                species_ids, tp,
                                 dict(profiler_kw, device=device))
     my_paths = _stride_setup(prof, read_paths, pid, pcount,
                              paired=paired, max_reads=max_reads)
@@ -383,14 +384,18 @@ def run_species_multihost(
     dict (identical on all ranks). Rank 0 writes species_profile.txt and
     temp/read_count.txt when outdir is given. checkpoint_path is this
     rank's own state file (run_species: temp/state.rank{pid}.npz)."""
+    from midas_tpu_torch.dist.species import DistributedSpeciesProfiler
     from midas_tpu_torch.profile.species import SpeciesProfiler, write_abundance
 
     db = _database(db)
     pid, pcount = process_index(), process_count()
     if isinstance(read_paths, str):
         read_paths = [read_paths]
-    _check_tp(tp)
-    prof = SpeciesProfiler(db, seed=seed, device=device, **profiler_kw)
+    if tp > 1:
+        prof = DistributedSpeciesProfiler(db, tp=tp, seed=seed,
+                                          device=device, **profiler_kw)
+    else:
+        prof = SpeciesProfiler(db, seed=seed, device=device, **profiler_kw)
     my_paths = _stride_setup(prof, read_paths, pid, pcount,
                              max_reads=max_reads, force_stride=True)
 

@@ -390,13 +390,37 @@ def species_update(
     (ScoringParams.evalue_min_score), indexed by max(qlen, 1)."""
     out = _align_batch_stages(index_arrays, pack_arrays, codes, qlens,
                               scoring, seed_params, max_len)
-    B, C = out["score"].shape
-    dev = codes.device
+    return species_classify(state, out, seq_species, seq_cutoff, qlens,
+                            n_reads, ord_base, aln_cov, n_species, min_score)
+
+
+def species_classify(
+    state: SpeciesState,
+    out: Dict[str, torch.Tensor],  # [B, W] valid, score, seq_idx, matches,
+    #                                mismatches, gap_cols of one batch
+    seq_species: torch.Tensor,
+    seq_cutoff: torch.Tensor,
+    qlens: torch.Tensor,
+    n_reads: int,
+    ord_base: int,
+    aln_cov: float,
+    n_species: int,
+    min_score: torch.Tensor = None,
+) -> SpeciesState:
+    """The classifier half of species_update over a batch's candidate
+    table, updating `state` in place: the filters, the best score with
+    ties kept, unique counts and bp, ambiguous rows spilled W wide. The
+    table is one aligner's [B, C] result, or dist/species.py's [B, tp*C]
+    table of every shard's candidates with global sequence ids (ids
+    past the pack read its last entry, as midas_tpu's gathers clip)."""
+    B = out["score"].shape[0]
+    dev = qlens.device
     f32 = torch.float32
     real = torch.arange(B, device=dev) < n_reads
     aln = out["matches"] + out["mismatches"] + out["gap_cols"]
     pid = 100.0 * out["matches"].to(f32) / aln.to(f32).clamp(min=1.0)
-    cutoff = seq_cutoff[out["seq_idx"]]
+    seq_c = out["seq_idx"].clamp(max=seq_species.shape[0] - 1)
+    cutoff = seq_cutoff[seq_c]
     qcov = aln.to(f32) / qlens[:, None].to(f32).clamp(min=1.0)
     keep = (out["valid"] & (out["score"] > 0) & (pid >= cutoff)
             & (qcov >= aln_cov) & real[:, None])
@@ -408,7 +432,7 @@ def species_update(
     has_hit = best > NEG_INF / 2
     best_mask = keep & (scores == best[:, None])
     n_best = best_mask.sum(dim=1)
-    sp = seq_species[out["seq_idx"]]                        # [B, C]
+    sp = seq_species[seq_c]                                 # [B, C]
 
     uniq_row = has_hit & (n_best == 1)
     col = torch.argmax(best_mask.to(torch.int32), dim=1)    # first best
@@ -553,14 +577,27 @@ def genes_update(
         index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
         scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
         smin_table, paired)
+    return genes_tally(state, num_genes, out1["seq_idx"], full, best_col,
+                       aligned, keep)
+
+
+def genes_tally(state: GenesState, num_genes: int, seq_idx: torch.Tensor,
+                full: Dict[str, torch.Tensor], best_col: torch.Tensor,
+                aligned: torch.Tensor, keep: torch.Tensor) -> GenesState:
+    """genes_update's integer scatter-adds, in place: aligned and kept
+    reads per gene (seq_idx [B, W] picked at best_col) and the kept
+    reads' aligned bp (full, the pass-2 statistics). Slot G takes every
+    read that is not counted, and any gene id past the pack (midas_tpu's
+    scatter drops those)."""
     G = num_genes
-    g = _pick(out1["seq_idx"], best_col)
-    ones = torch.ones(codes.shape[0], dtype=torch.int32, device=codes.device)
-    state.aligned_reads.index_add_(0, torch.where(aligned, g, G), ones)
-    gk = torch.where(keep, g, G)
+    g = _pick(seq_idx, best_col)
+    ones = torch.ones(g.shape[0], dtype=torch.int32, device=g.device)
+    state.aligned_reads.index_add_(0, torch.where(aligned & (g < G), g, G),
+                                   ones)
+    gk = torch.where(keep & (g < G), g, G)
     state.mapped_reads.index_add_(0, gk, ones)
     alen = full["qend"] - full["qstart"]
-    state.bp.index_add_(0, gk, torch.where(keep, alen, 0).to(torch.int32))
+    state.bp.index_add_(0, gk, torch.where(gk < G, alen, 0).to(torch.int32))
     return state
 
 
@@ -684,38 +721,66 @@ def snps_update(
         index_arrays, pack_arrays, codes, quals, qlens, mean_qual, n_reads,
         scoring, seed_params, max_len, mapid, readq, min_mapq, aln_cov,
         smin_table, paired)
-    B, L = codes.shape
-    dev = codes.device
     # the genome length from the counts buffer, not the pack: the pack
     # carries a guard pad beyond its total length (refpack.py)
     G = state.counts.shape[0] // 4 - 1
-    S = state.aligned_reads.shape[0] - 1
     ci = _pick(out1["seq_idx"], best_col)
-    sp = contig_species[ci]
-    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    qsel, qqsel = snps_tally(state, contig_species, ci,
+                             _pick(out1["strand"], best_col), codes, quals,
+                             qlens, aligned, keep)
+    gapless = full["gap_cols"] == 0
+    pileup_add(state.counts, G, pack_arrays["offsets"][ci], qsel, qqsel,
+               full, keep & gapless, baseq)
+    spill_gapped(state, ci, qsel, qqsel, full, qlens, keep & ~gapless)
+    return state
+
+
+def snps_tally(state: SnpsState, contig_species: torch.Tensor,
+               ci: torch.Tensor, strand: torch.Tensor, codes, quals, qlens,
+               aligned: torch.Tensor, keep: torch.Tensor):
+    """snps_update's per-species aligned / kept read counters (in place),
+    by each read's chosen contig ci (ids past the pack read the last
+    entry, as midas_tpu's gathers clip), and the reads as aligned:
+    reverse-complemented codes and reversed qualities on the reverse
+    strand. Returns (qsel, qqsel) [B, L]."""
+    S = state.aligned_reads.shape[0] - 1
+    sp = contig_species[ci.clamp(max=contig_species.shape[0] - 1)]
+    ones = torch.ones(ci.shape[0], dtype=torch.int32, device=ci.device)
     state.aligned_reads.index_add_(0, torch.where(aligned, sp, S), ones)
     state.mapped_reads.index_add_(0, torch.where(keep, sp, S), ones)
-
-    # the read as aligned: reverse-complemented codes and reversed
-    # qualities for reads on the reverse strand
-    is_rc = (_pick(out1["strand"], best_col) == 1)[:, None]
+    is_rc = (strand == 1)[:, None]
     qsel = torch.where(is_rc, revcomp_batch(codes, qlens), codes)
     qqsel = torch.where(is_rc, reverse_batch(quals, qlens, fill=0), quals)
+    return qsel, qqsel
 
-    gapless = full["gap_cols"] == 0
+
+def pileup_add(counts: torch.Tensor, G: int, seq_lo: torch.Tensor,
+               qsel: torch.Tensor, qqsel: torch.Tensor,
+               full: Dict[str, torch.Tensor], rows: torch.Tensor,
+               baseq: int) -> None:
+    """The closed-form pileup of gapless reads, in place: each base of
+    each read in `rows` at or above baseq adds one to counts (flat
+    [4 x (G+1)], base-major, column G the dump slot) at seq_lo + tstart
+    + its offset past qstart, if that lies in [0, G)."""
+    B, L = qsel.shape
+    dev = qsel.device
     qs, ts = full["qstart"][:, None], full["tstart"][:, None]
     j = torch.arange(L, device=dev)[None, :]
-    tpos = pack_arrays["offsets"][ci][:, None] + ts + (j - qs)
+    tpos = seq_lo[:, None] + ts + (j - qs)
     base = qsel.to(torch.int64)
-    ok = ((keep & gapless)[:, None] & (j >= qs)
-          & (j < full["qend"][:, None]) & (qqsel.to(torch.int32) >= baseq)
-          & (base < 4) & (tpos >= 0) & (tpos < G))
+    ok = (rows[:, None] & (j >= qs) & (j < full["qend"][:, None])
+          & (qqsel.to(torch.int32) >= baseq) & (base < 4) & (tpos >= 0)
+          & (tpos < G))
     flat = torch.where(ok, base * (G + 1) + tpos, G)
-    state.counts.index_add_(0, flat.reshape(-1),
-                            torch.ones(B * L, dtype=torch.int32, device=dev))
+    counts.index_add_(0, flat.reshape(-1),
+                      torch.ones(B * L, dtype=torch.int32, device=dev))
 
-    # kept gapped reads, in stream order
-    is_gap = keep & ~gapless
+
+def spill_gapped(state: SnpsState, ci: torch.Tensor, qsel: torch.Tensor,
+                 qqsel: torch.Tensor, full: Dict[str, torch.Tensor],
+                 qlens: torch.Tensor, is_gap: torch.Tensor) -> None:
+    """Append the kept gapped reads, in stream order, to the gap buffers:
+    codes and qualities as aligned, meta (contig, tstart, tend, qlen)."""
     meta = torch.stack([ci.to(torch.int32), full["tstart"].to(torch.int32),
                         full["tend"].to(torch.int32), qlens.to(torch.int32)],
                        dim=1)
@@ -723,4 +788,3 @@ def snps_update(
     _append_rows(state.gap_codes, n, qsel, is_gap)
     _append_rows(state.gap_quals, n, qqsel, is_gap)
     state.gap_n = _append_rows(state.gap_meta, n, meta, is_gap)
-    return state

@@ -92,10 +92,15 @@ class GenesProfiler:
                 self.gene_marker[gi] = marker_index[r["marker_id"]]
         self.n_markers = len(marker_ids)
         sp = seed_params or SeedParams(num_cands=4)
-        self.index = build_seed_index(self.pack, k=sp.k)
         scoring = LOCAL_SCORING if mode == "local" else GLOBAL_SCORING
-        self.aligner = Aligner(self.pack, self.index, scoring, sp,
-                               max_read_len=max_read_len, device=self.device)
+        self.aligner = self._make_aligner(scoring, sp, max_read_len)
+
+    def _make_aligner(self, scoring, seed_params, max_read_len):
+        """The aligner over the profiler's pack on its device
+        (dist/profilers.py's subclass shards it instead)."""
+        self.index = build_seed_index(self.pack, k=seed_params.k)
+        return Aligner(self.pack, self.index, scoring, seed_params,
+                       max_read_len=max_read_len, device=self.device)
 
     def run(self, read_paths, max_reads=None, trim=0, batch_size: int = 8192,
             checkpoint_path=None, align_only: bool = False,
@@ -152,14 +157,8 @@ class GenesProfiler:
                 device=dev, skip_batches=skip, trim=trim):
             last_index = db.index
             codes, quals, lengths, mean_qual = db.arrays
-            ds.genes_update(
-                state, al.index_arrays, al.pack_arrays,
-                G, codes, quals, lengths, mean_qual, db.n_reads,
-                scoring=al.scoring, seed_params=al.seed_params,
-                max_len=al.max_read_len, mapid=float(self.mapid),
-                readq=float(self.readq), min_mapq=int(self.mapq),
-                aln_cov=float(self.aln_cov), smin_table=smin_table,
-                paired=bool(paired))
+            self._genes_step(state, codes, quals, lengths, mean_qual,
+                             db.n_reads, smin_table, bool(paired))
             if checkpoint_path and (db.index + 1) % checkpoint_every == 0:
                 ckpt.save(checkpoint_path, ds.genes_state_host(state),
                           dict(fingerprint=fp, batches_done=db.index + 1,
@@ -170,6 +169,20 @@ class GenesProfiler:
                       dict(fingerprint=fp, batches_done=last_index + 1,
                            guard=self._guard()))
         return host
+
+    def _genes_step(self, state, codes, quals, lengths, mean_qual, n_reads,
+                    smin_table, paired: bool) -> None:
+        """One batch of CNV counting, state updated in place."""
+        from midas_tpu_torch.profile import device_steps as ds
+
+        al = self.aligner
+        ds.genes_update(
+            state, al.index_arrays, al.pack_arrays, self.pack.num_seqs,
+            codes, quals, lengths, mean_qual, n_reads, scoring=al.scoring,
+            seed_params=al.seed_params, max_len=al.max_read_len,
+            mapid=float(self.mapid), readq=float(self.readq),
+            min_mapq=int(self.mapq), aln_cov=float(self.aln_cov),
+            smin_table=smin_table, paired=paired)
 
     def _guard(self) -> Dict:
         """Finalize-relevant parameters persisted in checkpoint meta:

@@ -92,10 +92,15 @@ class SnpsProfiler:
             raise ValueError(f"genome fastas hold {cursor} contigs, the "
                              f"pack {self.pack.num_seqs}")
         sp = seed_params or SeedParams(num_cands=4)
-        self.index = build_seed_index(self.pack, k=sp.k)
         scoring = GLOBAL_SCORING if mode == "global" else LOCAL_SCORING
-        self.aligner = Aligner(self.pack, self.index, scoring, sp,
-                               max_read_len=max_read_len, device=self.device)
+        self.aligner = self._make_aligner(scoring, sp, max_read_len)
+
+    def _make_aligner(self, scoring, seed_params, max_read_len):
+        """The aligner over the profiler's pack on its device
+        (dist/profilers.py's subclass shards it instead)."""
+        self.index = build_seed_index(self.pack, k=seed_params.k)
+        return Aligner(self.pack, self.index, scoring, seed_params,
+                       max_read_len=max_read_len, device=self.device)
 
     def run(self, read_paths, max_reads=None, trim=0, batch_size: int = 8192,
             gap_cap: Optional[int] = None, checkpoint_path=None,
@@ -126,16 +131,11 @@ class SnpsProfiler:
         from midas_tpu_torch.profile import checkpoint as ckpt
         from midas_tpu_torch.profile import device_steps as ds
 
-        G = self.pack.total_len
-        S = len(self.species_ids)
         al = self.aligner
         L = al.max_read_len
         dev = self.device
-        # STAGING capacity, not a hard cap: the gapped-read buffer drains
-        # to the host whenever the worst-case row count since the last
-        # drain approaches it, so any number of gapped reads completes
-        cap = max(gap_cap or GAP_CAP, 2 * batch_size)  # a drain fits a batch
-        state = ds.snps_init(G, S, cap, L, dev)
+        batch_size, cap = self._staging(batch_size, gap_cap, paired)
+        state = self._init_state(cap)
         contig_species = torch.from_numpy(
             self.contig_species.astype(np.int64)).to(dev)
         smin_table = torch.from_numpy(
@@ -166,7 +166,7 @@ class SnpsProfiler:
 
         def snapshot() -> Dict[str, np.ndarray]:
             drain()
-            h = ds.snps_state_host(state)
+            h = self._state_host(state)
             rows = gap_rows()
             h.update(rows)
             h["gap_n"] = np.int64(rows["gap_codes"].shape[0])
@@ -181,9 +181,8 @@ class SnpsProfiler:
                 # counters and counts go back to the device; checkpointed
                 # gap rows stay on the host (they may exceed the staging
                 # capacity), as midas_tpu restores them
-                empty = gap_rows()
-                state = ds.snps_state_restore(
-                    dict(arrays, **empty, gap_n=0), cap, dev)
+                state = self._restore_state(dict(arrays, **gap_rows(),
+                                                 gap_n=0), cap)
                 if arrays["gap_codes"].shape[0]:
                     drained.append({k: arrays[k] for k in ds.GAP_FIELDS})
                 skip = int(meta["batches_done"])
@@ -200,14 +199,8 @@ class SnpsProfiler:
                 device=dev, skip_batches=skip, trim=trim):
             last_index = db.index
             codes, quals, lengths, mean_qual = db.arrays
-            ds.snps_update(
-                state, al.index_arrays, al.pack_arrays, contig_species,
-                codes, quals, lengths, mean_qual, db.n_reads,
-                scoring=al.scoring, seed_params=al.seed_params, max_len=L,
-                mapid=float(self.mapid), readq=float(self.readq),
-                min_mapq=int(self.mapq), baseq=int(self.baseq),
-                aln_cov=float(self.aln_cov), smin_table=smin_table,
-                paired=bool(paired))
+            self._snps_step(state, contig_species, codes, quals, lengths,
+                            mean_qual, db.n_reads, smin_table, bool(paired))
             rows_bound += db.n_reads
             if rows_bound > cap - batch_size:
                 drain()
@@ -223,6 +216,47 @@ class SnpsProfiler:
                       dict(fingerprint=fp, batches_done=last_index + 1,
                            guard=self._guard()))
         return host
+
+    def _staging(self, batch_size: int, gap_cap, paired: bool):
+        """(the batch size the stream is read at, the gapped-row staging
+        capacity). The capacity is not a hard cap: the buffer drains to
+        the host whenever the worst-case row count since the last drain
+        approaches it, so any number of gapped reads completes; it holds
+        at least two batches, so a drain always fits one."""
+        return batch_size, max(gap_cap or GAP_CAP, 2 * batch_size)
+
+    def _init_state(self, cap: int):
+        from midas_tpu_torch.profile import device_steps as ds
+
+        return ds.snps_init(self.pack.total_len, len(self.species_ids), cap,
+                            self.aligner.max_read_len, self.device)
+
+    def _restore_state(self, arrays: Dict, cap: int):
+        """Device state from a checkpoint's arrays (their gap rows
+        emptied: those stay on the host)."""
+        from midas_tpu_torch.profile import device_steps as ds
+
+        return ds.snps_state_restore(arrays, cap, self.device)
+
+    def _state_host(self, state) -> Dict[str, np.ndarray]:
+        from midas_tpu_torch.profile import device_steps as ds
+
+        return ds.snps_state_host(state)
+
+    def _snps_step(self, state, contig_species, codes, quals, lengths,
+                   mean_qual, n_reads, smin_table, paired: bool) -> None:
+        """One pileup batch, state updated in place."""
+        from midas_tpu_torch.profile import device_steps as ds
+
+        al = self.aligner
+        ds.snps_update(
+            state, al.index_arrays, al.pack_arrays, contig_species, codes,
+            quals, lengths, mean_qual, n_reads, scoring=al.scoring,
+            seed_params=al.seed_params, max_len=al.max_read_len,
+            mapid=float(self.mapid), readq=float(self.readq),
+            min_mapq=int(self.mapq), baseq=int(self.baseq),
+            aln_cov=float(self.aln_cov), smin_table=smin_table,
+            paired=paired)
 
     def _fingerprint(self, read_paths, max_reads, trim, batch_size, cap,
                      paired=False, interleaved=False,

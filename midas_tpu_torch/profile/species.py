@@ -70,9 +70,7 @@ class SpeciesProfiler:
         self.cutoffs = db.marker_cutoffs(override=mapid)
         self.pack = pack_from_fasta(db.marker_fasta())
         sp = seed_params or SeedParams(num_cands=8, max_hits=32)
-        self.index = build_seed_index(self.pack, k=sp.k)
-        self.aligner = Aligner(self.pack, self.index, MARKER_SCORING, sp,
-                               max_read_len=max_read_len, device=self.device)
+        self.aligner = self._make_aligner(MARKER_SCORING, sp, max_read_len)
         # per-target-sequence columns, aligned with pack.names
         self.species_order = list(db.species_info())  # file order
         sp_index = {s: i for i, s in enumerate(self.species_order)}
@@ -88,6 +86,13 @@ class SpeciesProfiler:
         self.total_gene_length = np.zeros(len(self.species_order), dtype=np.float64)
         for r in self.marker_info.values():
             self.total_gene_length[sp_index[r["species_id"]]] += int(r["gene_length"])
+
+    def _make_aligner(self, scoring, seed_params, max_read_len):
+        """The aligner over the profiler's pack on its device
+        (dist/species.py's subclass shards it instead)."""
+        self.index = build_seed_index(self.pack, k=seed_params.k)
+        return Aligner(self.pack, self.index, scoring, seed_params,
+                       max_read_len=max_read_len, device=self.device)
 
     def run(
         self,
@@ -288,7 +293,7 @@ class SpeciesProfiler:
         cap = amb_cap or AMB_CAP
         cap = max(cap, 2 * batch_size)   # a drain must always fit a batch
         al = self.aligner
-        C = al.seed_params.num_cands
+        C = self._amb_width()
         state = ds.species_init(n_species, C, cap, dev)
         seq_species = torch.from_numpy(self.seq_species).to(dev)
         seq_cutoff = torch.from_numpy(self.seq_cutoff).to(dev)
@@ -323,12 +328,12 @@ class SpeciesProfiler:
 
         if checkpoint_path:
             fp = ckpt.fingerprint(
-                kind="species", schema=3,  # schema 3: + amb_ord stream rank
+                **self._checkpoint_kind(),
                 paths=list(map(str, np.atleast_1d(read_paths))),
                 read_length=read_length, max_reads=max_reads,
                 batch_size=batch_size, aln_cov=self.aln_cov,
                 cutoffs=sorted(self.cutoffs.items()),
-                num_cands=C, cap=cap,
+                num_cands=al.seed_params.num_cands, cap=cap,
                 # a rank's stride (dist/driver.py::_stride_setup): a
                 # rerun with another rank count must not resume it
                 **({"stride": self._stride}
@@ -362,13 +367,9 @@ class SpeciesProfiler:
             total_reads += db.n_reads
             total_bp += db.total_bp
             codes, lengths = db.arrays
-            ds.species_update(
-                state, al.index_arrays, al.pack_arrays,
-                seq_species, seq_cutoff, codes, lengths, db.n_reads,
-                db.global_index * batch_size,
-                scoring=al.scoring, seed_params=al.seed_params,
-                max_len=al.max_read_len, aln_cov=float(self.aln_cov),
-                n_species=n_species, min_score=min_score)
+            self._species_step(state, seq_species, seq_cutoff, codes,
+                               lengths, db.n_reads,
+                               db.global_index * batch_size, min_score)
             rows_bound += db.n_reads
             if rows_bound > cap - batch_size:
                 drain(state)
@@ -408,6 +409,26 @@ class SpeciesProfiler:
         self.stats = dict(total_reads=total_reads, total_bp=total_bp,
                           total_alns=int(host["total_alns"]))
         return unique_count, unique_bp, ambiguous
+
+    def _amb_width(self) -> int:
+        """Columns of an ambiguous row: the candidates a read has."""
+        return self.aligner.seed_params.num_cands
+
+    def _checkpoint_kind(self) -> Dict:
+        return dict(kind="species", schema=3)  # schema 3: + amb_ord rank
+
+    def _species_step(self, state, seq_species, seq_cutoff, codes, lengths,
+                      n_reads, ord_base, min_score) -> None:
+        """One batch of the device classifier, state updated in place."""
+        from midas_tpu_torch.profile import device_steps as ds
+
+        al = self.aligner
+        ds.species_update(
+            state, al.index_arrays, al.pack_arrays, seq_species, seq_cutoff,
+            codes, lengths, n_reads, ord_base, scoring=al.scoring,
+            seed_params=al.seed_params, max_len=al.max_read_len,
+            aln_cov=float(self.aln_cov),
+            n_species=len(self.species_order), min_score=min_score)
 
     def _write_m8(self, fh, batch, res: AlignmentResult) -> None:
         """BLAST outfmt-6-compatible rows for passing candidates, with the

@@ -6,8 +6,8 @@ run_species_multihost in 2 and 3 ranks, and `run_midas genes -m local`
 / `snps -m global` in 2 ranks over single-end reads and -1/-2 pairs,
 byte for byte against midas_tpu's single-process runs (snps at Q40,
 where the two gapped-read oracles agree); `torchrun` over the CLI and a
-rerun under another rank count; the guards (--m8, stage splits, tp > 1)
-with midas_tpu's messages; and the failures that must fail the run: a
+rerun under another rank count; the guards (--m8, stage splits) with
+midas_tpu's messages; and the failures that must fail the run: a
 rank that dies, a rank that hangs past the timeout, and a card asked
 for where there is none. Exact equality throughout."""
 
@@ -624,17 +624,6 @@ def test_guards_exit_with_midas_tpu_messages(sim_community, sim_reads,
     for rel in ("species/species_profile.txt", "genes/summary.txt",
                 "snps/summary.txt"):
         assert not os.path.exists(os.path.join(out, rel))
-
-
-@pytest.mark.parametrize("entry", ["species", "genes", "snps"])
-def test_tp_sharding_raises(sim_community, sim_reads, entry):
-    """tp > 1 (the seed index split across cards) is not ported."""
-    fn = getattr(tdriver, f"run_{entry}_multihost")
-    args = (sim_community.db_dir, sim_reads[0])
-    if entry != "species":
-        args += ([sim_community.species[0].species_id],)
-    with pytest.raises(NotImplementedError, match="15b"):
-        fn(*args, tp=2, device="cpu")
 
 
 @pytest.mark.parametrize("fault", ["dies", "hangs", "no_card"])
