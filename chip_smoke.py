@@ -123,7 +123,8 @@ The m8 and merge phases:
              writer. Checked: K1 once a batch, the main phase's
              abundance and stats exactly, the first batch's align_batch
              planes equal to those of the plain DP on the same pairs (and
-             K1 held to the plain version there: species_m8_kernels).
+             K1 held to the plain version there: species_m8_kernels),
+             and alignments.m8 equal to phase 25's at tp = 2.
              Reads/s beside the main phase's, the readback's bytes and ms
              a batch, the host seconds of loading, align_batch, the
              classifier, the m8 writer and the assignment, the m8 rows
@@ -183,7 +184,10 @@ card), run beside the 1-shard profilers of the phases they follow:
              same reads again for reads/s beside phase 5's, one batch's
              device step and cross-shard gather, each shard's first-batch
              K1 call held to the plain version, and 2,048 reads on the
-             card against the same shards on the CPU.
+             card against the same shards on the CPU; then
+             run(m8_path=...) at tp = 2: K1 once a batch on one aligner
+             over the whole pack (built on shard 0's card), the
+             abundance and stats of phase 5, the m8 file for phase 19.
 26. tp_genes     — after phase 16: the genes cell's pangenome at 2 shards
              beside phase 7's profiler over the first 16,384 reads and
              8,192 mate pairs: results and files equal, K3 with qpen and
@@ -193,6 +197,31 @@ card), run beside the 1-shard profilers of the phases they follow:
 27. tp_snps      — after phase 17: the same for the snps cell (counts,
              counters and gapped rows equal; the stripe readback timed),
              then run_snps_multihost(tp=2) -m global card vs CPU.
+
+The database-build and analysis phases:
+
+28. dbbuild_main — after phase 14: 4 species of 1 Mb genomes (1,074
+             genome genes and 300 pangenome-only genes each) and a related
+             copy, written as build_midas_db's inputs and built by the
+             port (`cli/build_db.py --marker_map --compress`; seconds of
+             clustering, marker mapping and compression, the database's
+             bytes); then `run_midas species`, `genes -m local` and
+             `snps -m global` over it on the card (131,072 reads from the
+             4 species; genes and snps at --species_cov 1.0), each checked
+             against the simulator's truth (counted species, copy numbers
+             near 1 and unread pangenome-only genes, every genome site
+             written, modal allele = reference); reads/s of each run; the
+             three again at 2,048 reads on the card and on the CPU,
+             identical byte for byte.
+29. analysis_main — after phase 22: `python -m
+             midas_tpu_torch.cli.analysis` call_consensus, snp_diversity
+             (per-sample, pooled-samples) and strain_tracking (id_markers,
+             track_markers) over phase 22's merged snps species, the
+             consensus held to a numpy recount (consensus_recount);
+             compare_genes (presabs / jaccard, copynum / euclidean) and
+             query_by_compound over phase 21's card samples, merged genes
+             and a copy of its database with two genes annotated. Each
+             tool's seconds, and seconds per million merged sites.
 
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
@@ -204,14 +233,16 @@ banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
 launches), banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2, snps
 launches) and banded_sw_k1_glocal (K1 GLOBAL, timed at tp_step, its
 launches), each with every path's launches (the paired, m8, merge,
-multirank and tp paths' among them), and as the last line
+multirank, tp, tp m8 and dbbuild paths' among them), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
 """
 
+import contextlib
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -257,6 +288,8 @@ PAIRED_MIN_CONCORDANT = {"genes": 0.66, "snps": 0.97}
 # and HBM3 bandwidth
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# seconds a phase waits for its share of the background worker's work
+BACKGROUND_TIMEOUT = 900
 
 
 def emit(phase, **kw):
@@ -321,6 +354,38 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def _background_init():
+    """The background worker: the lowest CPU priority and one torch
+    thread, so that it takes one otherwise idle core and leaves the
+    timed phases theirs."""
+    os.nice(19)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _in_background(fn, *args):
+    """fn(*args) in the background worker; a SystemExit (fail(), a CLI's
+    exit) comes back to the caller as an error instead of ending the
+    worker, whose result would then never arrive."""
+    try:
+        return fn(*args)
+    except SystemExit as e:
+        raise RuntimeError(f"{fn.__name__}: exit {e.code}") from None
+
+
+def _cpu_cli(argv):
+    """run_midas argv (a --device cpu run), in the background worker:
+    (seconds, the kernel launches it made)."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    cuda_sw.LAUNCHES.clear()
+    t = time.time()
+    run_midas(argv)
+    return time.time() - t, dict(cuda_sw.LAUNCHES)
 
 
 def phase_device():
@@ -680,17 +745,25 @@ M8_OUTPUTS = ("species/species_profile.txt", "species/temp/read_count.txt",
               "species/temp/alignments.m8")
 
 
-def phase_cpu_vs_card(comm, fq):
+def _species_cli(comm, fq, dev, m8=False):
+    """(output directory, argv) of `run_midas species -n 2048 [--m8]` over
+    phase 3's database on dev."""
+    out = os.path.join(WORK, f"{'m8_cli' if m8 else 'cli'}_{dev}")
+    return out, ["species", out, "-1", fq, "-d", comm.db_dir, "-n",
+                 str(N_CPU_READS), *(["--m8"] if m8 else []), "--device", dev]
+
+
+def phase_cpu_vs_card(comm, fq, cpu_run):
+    """`run_midas species -n 2048` on the card against the same command on
+    the CPU (cpu_run: its background run, _cpu_cli)."""
     from midas_tpu_torch.cli.run_midas import main as run_midas
 
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        out = os.path.join(WORK, f"cli_{dev}")
-        t0 = time.time()
-        run_midas(["species", out, "-1", fq, "-d", comm.db_dir,
-                   "-n", str(N_CPU_READS), "--device", dev])
-        outs[dev] = (out, time.time() - t0)
-    (card, t_card), (cpu, t_cpu) = outs["cuda"], outs["cpu"]
+    card, argv = _species_cli(comm, fq, "cuda")
+    t0 = time.time()
+    run_midas(argv)
+    t_card = time.time() - t0
+    cpu = _species_cli(comm, fq, "cpu")[0]
+    t_cpu, _ = cpu_run.get(BACKGROUND_TIMEOUT)
     _same_files(card, cpu, M8_OUTPUTS[:2], "species, card vs CPU")
     keys, za = _same_state(os.path.join(card, "species/temp/state.npz"),
                            os.path.join(cpu, "species/temp/state.npz"),
@@ -812,6 +885,10 @@ def phase_species_m8(prof, fq, main, smi_line):
     readback_ms = (time.perf_counter() - t) / 10 * 1e3
     with open(m8, "rb") as f:
         m8_bytes = f.read()
+    with open(os.path.join(WORK, "tp_species_m8", "alignments.m8"), "rb") as f:
+        if f.read() != m8_bytes:
+            fail("alignments.m8 of DistributedSpeciesProfiler(tp=2) differs "
+                 "from the single-device profiler's")
     host = dict(load=secs["load"], align_batch=secs["align_batch"],
                 write_m8=secs["write_m8"],
                 classifier=secs["run_host"] - secs["load"]
@@ -827,27 +904,30 @@ def phase_species_m8(prof, fq, main, smi_line):
          host_seconds=host, m8_rows=m8_bytes.count(b"\n"),
          m8_bytes=len(m8_bytes), abundance_equal_main=True,
          stats_equal_main=True, stats=prof.stats,
-         first_batch_equal_plain=True, card=smi_line)
+         first_batch_equal_plain=True, tp2_m8_identical=True, card=smi_line)
     return launches, variant
 
 
-def phase_m8_cli(comm, fq, smi_line):
+def phase_m8_cli(comm, fq, cpu_run, smi_line):
     """`run_midas species --m8 -n 2048` through the CLI on the card and on
-    the CPU: species_profile.txt, read_count.txt and alignments.m8 equal
-    byte for byte, no temp/state.npz, K1 once on the card and nothing on
-    the CPU. Returns the card run's launches."""
+    the CPU (cpu_run: its background run, _cpu_cli): species_profile.txt,
+    read_count.txt and alignments.m8 equal byte for byte, no
+    temp/state.npz, K1 once on the card and nothing on the CPU. Returns
+    the card run's launches."""
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.cli.run_midas import main as run_midas
 
     outs, secs, launches = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        outs[dev] = out = os.path.join(WORK, f"m8_cli_{dev}")
-        cuda_sw.LAUNCHES.clear()
-        t0 = time.time()
-        run_midas(["species", out, "-1", fq, "-d", comm.db_dir,
-                   "-n", str(N_CPU_READS), "--m8", "--device", dev])
-        secs[dev] = round(time.time() - t0, 2)
-        launches[dev] = dict(cuda_sw.LAUNCHES)
+    outs["cuda"], argv = _species_cli(comm, fq, "cuda", m8=True)
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.time()
+    run_midas(argv)
+    secs["cuda"] = round(time.time() - t0, 2)
+    launches["cuda"] = dict(cuda_sw.LAUNCHES)
+    outs["cpu"] = _species_cli(comm, fq, "cpu", m8=True)[0]
+    secs["cpu"], launches["cpu"] = cpu_run.get(BACKGROUND_TIMEOUT)
+    secs["cpu"] = round(secs["cpu"], 2)
+    for dev, out in outs.items():
         if os.path.exists(os.path.join(out, "species/temp/state.npz")):
             fail(f"run_midas species --m8 ({dev}) wrote temp/state.npz")
     if launches != {"cuda": {"K1": -(-N_CPU_READS // 8192)}, "cpu": {}}:
@@ -882,15 +962,45 @@ def _tree_bytes(root):
     return out
 
 
-def phase_merge_cli(smi_line):
-    """Three samples of a small community through `run_midas species`,
-    `genes` and `snps` (2,048 reads each), on the card and then on the
-    CPU, then `merge_midas species`, `genes`, `snps` (the default
-    --core_snps, and --all_sites --all_samples) over each set: the merged
-    trees must be equal byte for byte. Returns the card runs' launches."""
+MERGE_CLI_MERGES = (("species", []), ("genes", []), ("snps", []),
+                    ("snps", ["--all_sites", "--all_samples"]))
+
+
+def _merge_cli_set(dev, db, reads):
+    """One device's half of phase merge_cli: the three samples through
+    `run_midas species`, `genes`, `snps` on dev, then each merge of
+    MERGE_CLI_MERGES over them. Returns ({merge index: merged tree},
+    seconds, launches)."""
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.cli.merge_midas import main as merge_midas
     from midas_tpu_torch.cli.run_midas import main as run_midas
+
+    root = os.path.join(WORK, "merge_cli", dev)
+    dirs = [os.path.join(root, f"sample{i}") for i in range(len(reads))]
+    trees, secs = {}, {}
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.time()
+    for d, fq in zip(dirs, reads):
+        base = [d, "-1", fq, "-d", db, "--device", dev]
+        run_midas(["species", *base])
+        run_midas(["genes", *base, "--species_cov", "0.1"])
+        run_midas(["snps", *base, "--species_cov", "0.1"])
+    secs[f"run_midas_{dev}"] = round(time.time() - t0, 2)
+    launches = dict(cuda_sw.LAUNCHES)
+    t0 = time.time()
+    for mi, (program, flags) in enumerate(MERGE_CLI_MERGES):
+        out = os.path.join(root, f"merged_{mi}_{program}")
+        merge_midas([program, out, "-i", ",".join(dirs), "-t", "list",
+                     "-d", db, *flags])
+        trees[mi] = _tree_bytes(out)
+    secs[f"merge_midas_{dev}"] = round(time.time() - t0, 2)
+    return trees, secs, launches
+
+
+def merge_cli_prepare():
+    """The host half of phase merge_cli (run in the background worker):
+    the community and the three samples' reads, then the CPU's half
+    (_merge_cli_set)."""
     from midas_tpu_torch.testkit.simulate import simulate_db, simulate_reads
 
     root = os.path.join(WORK, "merge_cli")
@@ -902,34 +1012,30 @@ def phase_merge_cli(smi_line):
                        variant_rate=0.02 if i == 2 else 0.0,
                        error_rate=0.005 if i == 2 else 0.0, seed=10 + i)
         reads.append(fq)
-    db = comm.db_dir
-    merges = (("species", []), ("genes", []), ("snps", []),
-              ("snps", ["--all_sites", "--all_samples"]))
-    trees, secs, launches = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        dirs = [os.path.join(root, dev, f"sample{i}") for i in range(3)]
-        cuda_sw.LAUNCHES.clear()
-        t0 = time.time()
-        for d, fq in zip(dirs, reads):
-            base = [d, "-1", fq, "-d", db, "--device", dev]
-            run_midas(["species", *base])
-            run_midas(["genes", *base, "--species_cov", "0.1"])
-            run_midas(["snps", *base, "--species_cov", "0.1"])
-        secs[f"run_midas_{dev}"] = round(time.time() - t0, 2)
-        launches[dev] = dict(cuda_sw.LAUNCHES)
-        t0 = time.time()
-        for mi, (program, flags) in enumerate(merges):
-            out = os.path.join(root, dev, f"merged_{mi}_{program}")
-            merge_midas([program, out, "-i", ",".join(dirs), "-t", "list",
-                         "-d", db, *flags])
-            trees[dev, mi] = _tree_bytes(out)
-        secs[f"merge_midas_{dev}"] = round(time.time() - t0, 2)
+    trees, secs, launches = _merge_cli_set("cpu", comm.db_dir, reads)
+    return dict(db=comm.db_dir, reads=reads, trees=trees, seconds=secs,
+                launches=launches)
+
+
+def phase_merge_cli(prep, smi_line):
+    """Three samples of a small community through `run_midas species`,
+    `genes` and `snps` (2,048 reads each), on the card, and on the CPU
+    in the background worker (merge_cli_prepare), then `merge_midas
+    species`, `genes`, `snps` (the default --core_snps, and --all_sites
+    --all_samples) over each set: the merged trees must be equal byte for
+    byte. Returns the card runs' launches and {db, samples, genes}: the
+    database, the card's sample directories and their merged genes
+    tree."""
+    db, reads = prep["db"], prep["reads"]
+    cuda_trees, secs, card_launches = _merge_cli_set("cuda", db, reads)
+    secs.update(prep["seconds"])
+    launches = dict(cuda=card_launches, cpu=prep["launches"])
     if launches["cpu"] or not all(launches["cuda"].get(k)
                                   for k in ("K1", "K3_qpen", "K2")):
         fail(f"merge_cli's per-sample runs launched {launches}")
     files, rows = 0, {}
-    for mi, (program, flags) in enumerate(merges):
-        a, b = trees["cuda", mi], trees["cpu", mi]
+    for mi, (program, flags) in enumerate(MERGE_CLI_MERGES):
+        a, b = cuda_trees[mi], prep["trees"][mi]
         if a != b:
             diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
             fail(f"merge_midas {program} {flags}: card and CPU sample sets "
@@ -944,7 +1050,13 @@ def phase_merge_cli(smi_line):
     emit("merge_cli", samples=3, reads_per_sample=N_CPU_READS,
          identical=True, merged_files=files, data_rows=rows,
          card_launches=launches["cuda"], seconds=secs, card=smi_line)
-    return launches["cuda"]
+    root = os.path.join(WORK, "merge_cli", "cuda")
+    genes = next(mi for mi, (program, _) in enumerate(MERGE_CLI_MERGES)
+                 if program == "genes")
+    return launches["cuda"], dict(
+        db=db, samples=[os.path.join(root, f"sample{i}")
+                        for i in range(len(reads))],
+        genes=os.path.join(root, f"merged_{genes}_genes"))
 
 
 # the merge_main cell: four samples of one of the repgenome-10sp cell's
@@ -955,14 +1067,23 @@ MERGE_SAMPLES, MERGE_READS = 4, 163840
 MERGE_SIM = dict(read_len=100, error_rate=0.005, indel_rate=0.01)
 
 
-def _simulate_sample(args):
-    """One merge_main sample's reads (run in a worker process)."""
+def merge_main_simulate(gcomm):
+    """merge_main's samples' reads (run in the background worker): (the
+    FASTQ paths, seconds)."""
     from midas_tpu_torch.testkit.simulate import simulate_reads
 
-    comm, fq, n_reads, abundances, variant_rate, seed = args
-    simulate_reads(comm, fq, n_reads=n_reads, abundances=abundances,
-                   variant_rate=variant_rate, seed=seed, **MERGE_SIM)
-    return fq
+    root = os.path.join(WORK, "merge_main")
+    os.makedirs(root, exist_ok=True)
+    abund = [1.0] + [0.0] * (len(gcomm.species) - 1)
+    t0 = time.time()
+    reads = []
+    for i in range(MERGE_SAMPLES):
+        fq = os.path.join(root, f"reads{i}.fq.gz")
+        simulate_reads(gcomm, fq, n_reads=MERGE_READS, abundances=abund,
+                       variant_rate=0.02 if i == MERGE_SAMPLES - 1 else 0.0,
+                       seed=20 + i, **MERGE_SIM)
+        reads.append(fq)
+    return reads, time.time() - t0
 
 
 def _read_snps_gz(path):
@@ -1073,33 +1194,22 @@ def _check_merged_snps(merged_sp_dir, want):
         fail("merged snps differ from the numpy recount in ref_id/ref_pos")
 
 
-def phase_merge_main(gcomm, smi_line):
+def phase_merge_main(gcomm, sim, smi_line):
     """merge_midas snps at a user's scale: four samples of the
-    repgenome-10sp cell's first species (3 Mb), each through `run_midas
+    repgenome-10sp cell's first species (3 Mb; sim: merge_main_simulate's
+    result), each through `run_midas
     snps --species_id <sp>` on the card, then `merge_midas snps` at its
     defaults, checked against snps_recount. Emits each stage's seconds
     and the merge's seconds per million sites. Returns the per-sample
-    runs' launches."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    runs' launches and the merged species directory."""
     from midas_tpu_torch.align import cuda_sw
     from midas_tpu_torch.cli.merge_midas import main as merge_midas
     from midas_tpu_torch.cli.run_midas import main as run_midas
 
     root = os.path.join(WORK, "merge_main")
-    os.makedirs(root, exist_ok=True)
     sp = gcomm.species[0].species_id
-    abund = [1.0] + [0.0] * (len(gcomm.species) - 1)
-    jobs = [(gcomm, os.path.join(root, f"reads{i}.fq.gz"), MERGE_READS, abund,
-             0.02 if i == MERGE_SAMPLES - 1 else 0.0, 20 + i)
-            for i in range(MERGE_SAMPLES)]
-    secs = {}
-    t0 = time.time()
-    with ProcessPoolExecutor(MERGE_SAMPLES, mp_context=multiprocessing.get_context(
-            "spawn")) as ex:
-        reads = list(ex.map(_simulate_sample, jobs))
-    secs["simulate"] = time.time() - t0
+    reads, t_sim = sim
+    secs = dict(simulate_in_background=t_sim)
     dirs = [os.path.join(root, f"sample{i}") for i in range(MERGE_SAMPLES)]
     cuda_sw.LAUNCHES.clear()
     run_s = []
@@ -1134,7 +1244,157 @@ def phase_merge_main(gcomm, smi_line):
          banded_sw_launches=launches, seconds=secs,
          merge_seconds_per_million_sites=secs["merge_midas_snps"]
          / (want["n_sites"] / 1e6), card=smi_line)
-    return launches
+    return launches, os.path.join(merged, sp)
+
+
+def consensus_recount(merged_sp_dir, site_depth=2):
+    """call_consensus at its defaults, recounted in numpy from the merged
+    snps_info / snps_freq / snps_depth tables: every site with an A/C/G/T
+    reference allele; per sample '-' below site_depth reads, else the
+    minor allele where its frequency is >= 0.5 and the major allele
+    elsewhere. Returns {sample: consensus}."""
+    head, info = _read_table(os.path.join(merged_sp_dir, "snps_info.txt"))
+    fhead, freq = _read_table(os.path.join(merged_sp_dir, "snps_freq.txt"))
+    dhead, depth = _read_table(os.path.join(merged_sp_dir, "snps_depth.txt"))
+    col = {h: i for i, h in enumerate(head)}
+    ids = [r[0] for r in info]
+    if [r[0] for r in freq] != ids or [r[0] for r in depth] != ids \
+            or fhead != dhead:
+        fail("merged snps_info / freq / depth list different sites")
+    keep = np.array([r[col["ref_allele"]] in ("A", "C", "G", "T")
+                     for r in info], dtype=bool)
+    major = np.array([r[col["major_allele"]] for r in info])[keep]
+    minor = np.array([r[col["minor_allele"]] for r in info])[keep]
+    f = np.array([r[1:] for r in freq], dtype=np.float64).reshape(
+        len(ids), -1)[keep]
+    d = np.array([r[1:] for r in depth], dtype=np.int64).reshape(
+        len(ids), -1)[keep]
+    return {s: "".join(np.where(d[:, j] >= site_depth,
+                                np.where(f[:, j] >= 0.5, minor, major), "-"))
+            for j, s in enumerate(fhead[1:])}
+
+
+def _analysis(tool, argv):
+    """`python -m midas_tpu_torch.cli.analysis <tool> argv...` as a user
+    runs it; returns its wall seconds."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "midas_tpu_torch.cli.analysis", tool, *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"analysis {tool} {argv}: {proc.stderr[-2000:]}")
+    return time.perf_counter() - t
+
+
+def phase_analysis_main(snps_dir, cli, smi_line):
+    """The five analysis tools through `python -m
+    midas_tpu_torch.cli.analysis`: call_consensus, snp_diversity
+    (per-sample and pooled-samples) and strain_tracking (id_markers, then
+    track_markers, at --min_reads 1) over merge_main's merged snps
+    species directory (four 3 Mb samples at ~5.5x, its default filters);
+    compare_genes (presabs / jaccard and copynum / euclidean) and
+    query_by_compound over merge_cli's card samples, merged genes and a
+    copy of its database whose centroid_functions name two genes with
+    the enzymes of one compound of the packaged KEGG table; four tools
+    at a time, each in its own process. The consensus FASTA is checked
+    against consensus_recount, the other tables for their rows. Emits
+    each tool's seconds and seconds per million merged sites."""
+    import gzip
+
+    from midas_tpu_torch.analyze.query_compound import (
+        load_cpd_to_enzyme, packaged_cpd_to_enzyme)
+
+    root = os.path.join(WORK, "analysis")
+    os.makedirs(root, exist_ok=True)
+    n_sites = len(_read_table(os.path.join(snps_dir, "snps_info.txt"))[1])
+    n_samples = len(_read_table(os.path.join(snps_dir, "snps_summary.txt"))[1])
+    if not n_sites:
+        fail(f"analysis_main: {snps_dir} holds no merged sites")
+    out = {k: os.path.join(root, k) for k in (
+        "consensus.fa", "pi_per_sample.txt", "pi_pooled.txt", "markers.txt",
+        "sharing.txt", "genes_jaccard.txt", "genes_euclidean.txt",
+        "compound.txt")}
+    sp0 = min(d for d in os.listdir(cli["genes"])
+              if os.path.isdir(os.path.join(cli["genes"], d)))
+    genes_dir = os.path.join(cli["genes"], sp0)
+    n_genes = len(_read_table(os.path.join(genes_dir,
+                                           "genes_copynum.txt"))[1])
+    db = os.path.join(root, "db")
+    shutil.rmtree(db, ignore_errors=True)
+    shutil.copytree(cli["db"], db)
+    table = load_cpd_to_enzyme(packaged_cpd_to_enzyme())
+    compound = next(c for c, e in sorted(table.items()) if len(e) >= 2)
+    genes = [r[0] for r in _read_table(os.path.join(
+        genes_dir, "genes_copynum.txt"))[1][:2]]
+    with gzip.open(os.path.join(db, "pan_genomes", sp0,
+                                "centroid_functions.txt.gz"), "wt") as f:
+        f.write("gene_id\tfunction_id\tontology\n")
+        for g, e in zip(genes, table[compound]):
+            f.write(f"{g}\t{e}\tec\n")
+
+    # (name, tool, argv) steps; the steps of one job run in order, the
+    # jobs four at a time. --min_reads 1: the simulator's variants are
+    # per read, so at ~5.5x an allele seldom has the default 3 reads in
+    # one sample
+    jobs = [
+        [("call_consensus", "call_consensus",
+          [snps_dir, "--out", out["consensus.fa"]])],
+        [("snp_diversity_per_sample", "snp_diversity",
+          [snps_dir, "--out", out["pi_per_sample.txt"]])],
+        [("snp_diversity_pooled", "snp_diversity",
+          [snps_dir, "--sample_type", "pooled-samples", "--out",
+           out["pi_pooled.txt"]])],
+        [("strain_tracking_id_markers", "strain_tracking",
+          ["id_markers", snps_dir, "--min_reads", "1", "--out",
+           out["markers.txt"]]),
+         ("strain_tracking_track_markers", "strain_tracking",
+          ["track_markers", snps_dir, "--min_reads", "1", "--out",
+           out["sharing.txt"], "--markers", out["markers.txt"]])],
+        [("compare_genes_jaccard", "compare_genes",
+          [genes_dir, "--dtype", "presabs", "--distance", "jaccard",
+           "--out", out["genes_jaccard.txt"]]),
+         ("compare_genes_euclidean", "compare_genes",
+          [genes_dir, "--distance", "euclidean", "--out",
+           out["genes_euclidean.txt"]]),
+         ("query_by_compound", "query_by_compound",
+          ["-i", ",".join(cli["samples"]), "-t", "list", "-d", db, "-c",
+           compound, "-o", out["compound.txt"]])],
+    ]
+    secs = {}
+    with ThreadPoolExecutor(4) as ex:
+        for done in ex.map(lambda steps: {name: _analysis(tool, argv)
+                                          for name, tool, argv in steps},
+                           jobs):
+            secs.update(done)
+
+    # checks: the consensus against the numpy recount, the rest by rows
+    with open(out["consensus.fa"]) as f:
+        fa = f.read().split("\n")
+    got = {h[1:].split("\t")[0]: s for h, s in zip(fa[0:-1:2], fa[1::2])}
+    want = consensus_recount(snps_dir)
+    if got != want or len(next(iter(want.values()))) == 0:
+        fail(f"call_consensus differs from the numpy recount "
+             f"({ {k: len(v) for k, v in got.items()} } vs "
+             f"{ {k: len(v) for k, v in want.items()} } bases)")
+    rows = {k: len(_read_table(p)[1]) for k, p in out.items()
+            if k != "consensus.fa"}
+    pairs = n_samples * (n_samples - 1) // 2
+    if rows["pi_per_sample.txt"] != n_samples or rows["pi_pooled.txt"] != 1 \
+            or rows["sharing.txt"] != pairs \
+            or rows["genes_jaccard.txt"] != 3 \
+            or rows["genes_euclidean.txt"] != 3 \
+            or not rows["compound.txt"]:
+        fail(f"analysis_main: unexpected table rows {rows}")
+    snps_tools = [k for k in secs if not k.startswith(("compare",
+                                                       "query"))]
+    emit("analysis_main", merged_sites=n_sites, samples=n_samples,
+         consensus_equals_recount=True,
+         consensus_bases=len(next(iter(want.values()))),
+         genes_species=sp0, genes=n_genes, compound=compound, rows=rows,
+         seconds=secs, max_sites=None,
+         seconds_per_million_sites={k: secs[k] / (n_sites / 1e6)
+                                    for k in snps_tools},
+         card=smi_line)
 
 
 def phase_genes_data():
@@ -1804,6 +2064,267 @@ def phase_snps_cpu(comm, fq):
     return result
 
 
+# the dbbuild_main cell: a custom database of a few 1 Mb genomes built by
+# the port (marker-map mode, --compress), then profiled on the card. Sized
+# before the first card run as the largest community whose run_build
+# stayed under ~90 s on a CPU: 4 species + 1 related copy (PERF.md §4).
+DBBUILD_SIM = dict(n_species=4, genome_len=1_000_000, gene_len=900,
+                   n_extra_genes=300, related_pairs=1, divergence=0.03,
+                   seed=5)
+N_DBBUILD_SPECIES, N_DBBUILD_READS = 4, 131072
+
+
+@contextlib.contextmanager
+def _call_spans(owner, names):
+    """While the block runs, record each call of the functions `names` of
+    owner (a module or a class) as a (start, end) perf_counter span in
+    the yielded {name: [spans]}; restore them after."""
+    real = {n: getattr(owner, n) for n in names}
+    spans = {n: [] for n in names}
+
+    def timed(n):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real[n](*a, **k)
+            finally:
+                spans[n].append((t, time.perf_counter()))
+        return run
+
+    for n in names:
+        setattr(owner, n, timed(n))
+    try:
+        yield spans
+    finally:
+        for n, fn in real.items():
+            setattr(owner, n, fn)
+
+
+def _timed_build(argv):
+    """build_db's CLI in this process, its stages timed by the functions
+    it calls: clustering (cluster_levels), marker mapping (from the last
+    gene located on its rep genome to the KEGG install: step 5 of
+    run_build), compression (_compress), and the rest. Returns the
+    seconds."""
+    from midas_tpu_torch.cli.build_db import main as build_db
+    from midas_tpu_torch.dbbuild import build_db as bd
+
+    with _call_spans(bd, ("cluster_levels", "find_gene", "_install_kegg",
+                          "_compress")) as spans:
+        t0 = time.perf_counter()
+        if build_db(argv) != 0:
+            fail(f"build_db {argv} failed")
+        secs = dict(total=time.perf_counter() - t0)
+    for key, name in (("clustering", "cluster_levels"),
+                      ("compression", "_compress")):
+        secs[key] = sum(b - a for a, b in spans[name])
+    secs["marker_mapping"] = (spans["_install_kegg"][0][0]
+                              - spans["find_gene"][-1][1])
+    secs["rest"] = (secs["total"] - secs["clustering"]
+                    - secs["marker_mapping"] - secs["compression"])
+    return secs
+
+
+def _dbbuild_truth(comm, out, n_reads):
+    """The simulator's truth over one run_midas species / genes / snps
+    output directory of the dbbuild_main cell, as phases main, genes_main
+    and snps_main check it: reads only from the first N_DBBUILD_SPECIES
+    species (the related copy may take ambiguous ones), each of them
+    counted and selected, at least half as many counted as the reads the
+    marker genes' share of the genomes would hold; their genome genes
+    near copy number 1 and
+    their pangenome-only genes without reads; each rep genome's sites
+    all written, with the modal allele the reference at >= 99% of sites
+    of depth >= 3. Returns the per-species figures."""
+    import gzip
+
+    true = [sp.species_id for sp in comm.species[:N_DBBUILD_SPECIES]]
+    related = {sp.species_id for sp in comm.species[N_DBBUILD_SPECIES:]}
+    head, rows = _read_table(os.path.join(out, "species/species_profile.txt"))
+    prof = {r[0]: dict(zip(head, r)) for r in rows}
+    counts = {s: int(r["count_reads"]) for s, r in prof.items()}
+    rel = np.array([float(r["relative_abundance"]) for r in prof.values()])
+    stray = sum(c for s, c in counts.items()
+                if s not in true and s not in related)
+    counted = sum(counts.values())
+    marker_share = np.mean([
+        sum(len(g["seq"]) for g in sp.genes
+            if g["gene_id"] in set(sp.marker_gene_ids.values()))
+        / sum(len(c) for c in sp.contigs.values())
+        for sp in comm.species[:N_DBBUILD_SPECIES]])
+    if not np.isfinite(rel).all() or abs(rel.sum() - 1.0) > 1e-9 or stray \
+            or counted < 0.5 * marker_share * n_reads \
+            or min(counts.get(s, 0) for s in true) == 0:
+        fail(f"dbbuild_main: the species profile disagrees with the truth: "
+             f"counted={counted} (marker share {marker_share:.4f} of "
+             f"{n_reads} reads), stray={stray}, counts={counts}")
+    figures = []
+    for sp in comm.species[:N_DBBUILD_SPECIES]:
+        sid = sp.species_id
+        path = os.path.join(out, "genes/output", f"{sid}.genes.gz")
+        if not os.path.exists(path):
+            fail(f"dbbuild_main: genes did not select {sid}")
+        with gzip.open(path, "rt") as f:
+            g = {r[0]: r for r in (ln.rstrip("\n").split("\t")
+                                   for ln in list(f)[1:])}
+        on = [float(g[x["gene_id"]][3]) for x in sp.genes
+              if x["scaffold_id"] is not None]
+        off = [int(g[x["gene_id"]][1]) for x in sp.genes
+               if x["scaffold_id"] is None]
+        med = float(np.median(on))
+        if len(g) != len(sp.genes) or not 0.5 < med < 2.0 or any(off):
+            fail(f"dbbuild_main: genes disagree with the truth for {sid}: "
+                 f"{len(g)} genes of {len(sp.genes)}, median copy number "
+                 f"{med}, {sum(1 for c in off if c)} pangenome-only genes "
+                 "with reads")
+        lines, nums = _read_snps_gz(os.path.join(out, "snps/output",
+                                                 f"{sid}.snps.gz"))
+        genome = sum(len(c) for c in sp.contigs.values())
+        ref = np.array(["ACGT".find(ln.split(b"\t", 3)[2].decode())
+                        for ln in lines])
+        deep = nums[:, 0] >= 3
+        agree = float((nums[deep, 1:].argmax(axis=1) == ref[deep]).mean())
+        if len(lines) != genome or deep.sum() < 1000 or agree < 0.99:
+            fail(f"dbbuild_main: snps disagree with the truth for {sid}: "
+                 f"{len(lines)} sites of {genome}, modal allele = reference "
+                 f"at {agree:.4f} of {int(deep.sum())} sites of depth >= 3")
+        figures.append(dict(species=sid, count_reads=counts[sid],
+                            median_copies=med, sites_depth_ge3=int(deep.sum()),
+                            modal_equals_reference=agree))
+    return figures
+
+
+def _dbbuild_check_commands(comm, fq, db, dev):
+    """run_midas species, genes -m local and snps -m global at 2,048 reads
+    on dev, over the species the truth names, into one directory: (the
+    directory, the argv lists)."""
+    ids = ",".join(comm.species_ids()[:N_DBBUILD_SPECIES])
+    out = os.path.join(WORK, "dbbuild", f"check_{dev}")
+    base = [out, "-1", fq, "-d", db, "-n", str(N_CPU_READS), "--device", dev]
+    return out, [["species", *base],
+                 ["genes", *base, "-m", "local", "--species_id", ids],
+                 ["snps", *base, "-m", "global", "--species_id", ids]]
+
+
+def dbbuild_prepare():
+    """The host half of phase dbbuild_main (run in the background
+    worker): simulate DBBUILD_SIM's genomes, write the builder's inputs
+    (marker-map mode, as tests/test_dbbuild.py's built_db) and the reads,
+    build with build_db --compress (_timed_build), then run the card
+    check's commands with --device cpu. Returns what the phase needs."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+    from midas_tpu_torch.testkit.simulate import (simulate_db, simulate_reads,
+                                                  write_genome_inputs)
+
+    root = os.path.join(WORK, "dbbuild")
+    t0 = time.time()
+    comm = simulate_db(os.path.join(root, "truth_db"), **DBBUILD_SIM)
+    indir = os.path.join(root, "genomes")
+    mapfile = write_genome_inputs(comm, indir)
+    marker_map = os.path.join(root, "markers.tsv")
+    with open(marker_map, "w") as f:
+        for sp in comm.species:
+            for marker_id, gene_id in sp.marker_gene_ids.items():
+                f.write(f"{gene_id}\t{marker_id}\n")
+    fq = os.path.join(root, "reads.fq.gz")
+    simulate_reads(comm, fq, n_reads=N_DBBUILD_READS, read_len=100,
+                   error_rate=0.005, indel_rate=0.01, seed=12,
+                   abundances=_first_n_abundances(comm, N_DBBUILD_SPECIES))
+    t_sim = time.time() - t0
+    db = os.path.join(root, "built")
+    build_secs = _timed_build([indir, mapfile, db, "--marker_map", marker_map,
+                               "--compress"])
+    db_bytes = sum(os.path.getsize(os.path.join(d, n))
+                   for d, _, files in os.walk(db) for n in files)
+    t = time.perf_counter()
+    for argv in _dbbuild_check_commands(comm, fq, db, "cpu")[1]:
+        run_midas(argv)
+    return dict(comm=comm, fq=fq, db=db, simulate_seconds=t_sim,
+                build_seconds=build_secs, db_bytes=db_bytes,
+                cpu_check_seconds=time.perf_counter() - t,
+                cpu_launches=dict(cuda_sw.LAUNCHES))
+
+
+def phase_dbbuild_main(prep, smi_line):
+    """A custom database built by the port (dbbuild_prepare, in the
+    background worker), profiled on the card: `run_midas species`,
+    `genes -m local` and `snps -m global` over it (N_DBBUILD_READS reads
+    from the first N_DBBUILD_SPECIES species, genes and snps at
+    --species_cov 1.0 in the species run's directory), each checked
+    against the truth; then the three at 2,048 reads on the card,
+    identical byte for byte to the worker's CPU runs. Returns the full
+    runs' launches."""
+    from collections import Counter
+
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.cli.run_midas import main as run_midas
+    from midas_tpu_torch.profile.genes import GenesProfiler
+    from midas_tpu_torch.profile.snps import SnpsProfiler
+    from midas_tpu_torch.profile.species import SpeciesProfiler
+
+    comm, fq, db = prep["comm"], prep["fq"], prep["db"]
+    # each run end to end, and its profiler's run (the profiling stage)
+    out = os.path.join(WORK, "dbbuild", "card")
+    commands = (("species", SpeciesProfiler, []),
+                ("genes", GenesProfiler, ["-m", "local", "--species_cov",
+                                          "1.0"]),
+                ("snps", SnpsProfiler, ["-m", "global", "--species_cov",
+                                        "1.0"]))
+    runs, launches = {}, Counter()
+    for program, cls, flags in commands:
+        with _call_spans(cls, ("run",)) as spans:
+            cuda_sw.LAUNCHES.clear()
+            t = time.perf_counter()
+            run_midas([program, out, "-1", fq, "-d", db, *flags])
+            wall = time.perf_counter() - t
+        got = dict(cuda_sw.LAUNCHES)
+        launches.update(got)
+        (a, b), = spans["run"]
+        runs[program] = dict(seconds=wall,
+                             reads_per_sec=N_DBBUILD_READS / wall,
+                             profile_seconds=b - a,
+                             profile_reads_per_sec=N_DBBUILD_READS / (b - a),
+                             banded_sw_launches=got)
+    n_b = -(-N_DBBUILD_READS // BATCH)
+    if dict(launches) != {"K1": n_b, "K3_qpen": 2 * n_b, "K2": 2 * n_b}:
+        fail(f"dbbuild_main's runs launched {dict(launches)} for {n_b} "
+             "batches each")
+    truth = _dbbuild_truth(comm, out, N_DBBUILD_READS)
+
+    # card = CPU at 2,048 reads
+    card, argvs = _dbbuild_check_commands(comm, fq, db, "cuda")
+    cpu = _dbbuild_check_commands(comm, fq, db, "cpu")[0]
+    cuda_sw.LAUNCHES.clear()
+    t = time.perf_counter()
+    for argv in argvs:
+        run_midas(argv)
+    card_secs = time.perf_counter() - t
+    if not cuda_sw.LAUNCHES or prep["cpu_launches"]:
+        fail(f"dbbuild_main's 2,048-read runs launched "
+             f"{dict(cuda_sw.LAUNCHES)} on the card, "
+             f"{prep['cpu_launches']} on the CPU")
+    _same_files(card, cpu, M8_OUTPUTS[:2],
+                "dbbuild_main species, card vs CPU")
+    _same_state(os.path.join(card, "species/temp/state.npz"),
+                os.path.join(cpu, "species/temp/state.npz"),
+                "dbbuild_main SpeciesState, card vs CPU")
+    _same_genes_outputs(card, cpu, "dbbuild_main genes, card vs CPU")
+    _same_snps_outputs(card, cpu, "dbbuild_main snps, card vs CPU")
+    emit("dbbuild_main", species=len(comm.species),
+         genome_len=DBBUILD_SIM["genome_len"],
+         genes_per_species=[len(sp.genes) for sp in comm.species],
+         simulate_seconds=prep["simulate_seconds"],
+         build_seconds=prep["build_seconds"], db_bytes=prep["db_bytes"],
+         reads=N_DBBUILD_READS, batch=BATCH, runs=runs,
+         banded_sw_launches=dict(launches), truth=truth,
+         cpu_identical=True, cpu_check_reads=N_CPU_READS,
+         cpu_check_seconds=dict(cuda=card_secs,
+                                cpu=prep["cpu_check_seconds"]),
+         card=smi_line)
+    return dict(launches)
+
+
 def phase_paired_data(gcomm, smi_line):
     """The paired cells' reads: N_PAIRS mate pairs from the genes cell's
     10 species (its community, pangenome profiler and snps profiler are
@@ -2422,7 +2943,11 @@ def phase_tp_species(comm, fq, truth, main, smi_line):
     reads again, warm, for reads/s beside phase main's, one batch's
     device step and the cross-shard gather, the first batch's K1 calls
     held to the plain version, and 2,048 reads on the card against the
-    same shards on the CPU. Returns (launches, variant records)."""
+    same shards on the CPU; then run(m8_path=...) at tp = 2 (fault k):
+    K1 once a batch on one aligner over the whole pack, the abundance
+    and stats of phase main, its alignments.m8 left for phase species_m8
+    to compare. Returns ({tp_species, tp_species_m8: launches}, variant
+    records)."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
@@ -2543,6 +3068,24 @@ def phase_tp_species(comm, fq, truth, main, smi_line):
         files[dev] = d
     _same_files(files["cuda"], files["cpu"], M8_OUTPUTS[:2],
                 "tp_species at 2,048 reads, card vs CPU")
+
+    # --m8 at tp = 2: the host path on one aligner over the whole pack,
+    # built on shard 0's card; phase species_m8 compares the file
+    m8 = os.path.join(WORK, "tp_species_m8", "alignments.m8")
+    os.makedirs(os.path.dirname(m8), exist_ok=True)
+    cuda_sw.LAUNCHES.clear()
+    t = time.perf_counter()
+    ab_m8 = prof.run([fq], batch_size=BATCH, m8_path=m8)
+    torch.cuda.synchronize()
+    m8_secs = time.perf_counter() - t
+    m8_launches = dict(cuda_sw.LAUNCHES)
+    if m8_launches != {"K1": n_batches}:
+        fail(f"tp_species --m8 launched {m8_launches} for {n_batches} "
+             "batches (want K1 once a batch, on one aligner)")
+    if ab_m8 != main["abundance"] or prof.stats != main["stats"]:
+        fail("tp_species --m8: abundance or stats differ from phase main's")
+    if prof.aligner is not al:
+        fail("tp_species --m8 left the profiler without its shards")
     emit("tp_species", reads=N_READS, batch=BATCH, batches=n_batches, tp=TP,
          entry_point_seconds=wall, setup_seconds=wall - stage[0],
          profile_seconds=stage[0], seconds=dt, reads_per_sec=N_READS / dt,
@@ -2554,8 +3097,12 @@ def phase_tp_species(comm, fq, truth, main, smi_line):
          gather_ms=gather_ms, max_memory_allocated=peak, shards=shards,
          counted_reads=counted, counted_in_abundant=in_first,
          stray_reads=stray, species_differing_from_tp1=len(differ),
-         cpu_identical=True, cpu_check_seconds=secs, card=smi_line)
-    return launches, variants
+         cpu_identical=True, cpu_check_seconds=secs,
+         m8=dict(seconds=m8_secs, reads_per_sec=N_READS / m8_secs,
+                 banded_sw_launches=m8_launches, abundance_equal_main=True,
+                 stats_equal_main=True, m8_bytes=os.path.getsize(m8)),
+         card=smi_line)
+    return {"tp_species": launches, "tp_species_m8": m8_launches}, variants
 
 
 def _tp_cli_check(comm, fq, program, mode, smi_line):
@@ -2825,6 +3372,20 @@ def main():
         fail("chip_smoke.py must sit at the root of a checkout of the repo "
              "(midas_tpu_torch/ beside it)")
     kind, smi_line = phase_device()
+    # CPU work that no phase times runs beside the phases, in one
+    # background process on one niced core: the CPU halves of phases cpu,
+    # m8_cli and merge_cli, dbbuild_main's simulation, build and CPU
+    # check, and merge_main's reads
+    background = multiprocessing.get_context("spawn").Pool(
+        1, initializer=_background_init)
+    try:
+        _phases(kind, smi_line, background)
+    finally:
+        background.terminate()
+        background.join()
+
+
+def _phases(kind, smi_line, background):
     import torch
 
     phase_build()
@@ -2833,17 +3394,27 @@ def main():
     tp_step_launches, tp_variants = phase_tp_step(smi_line)
     variants += tp_variants
     main_run = phase_main(prof, fq, truth)
+    cpu_run, m8_cpu_run = (
+        background.apply_async(_in_background,
+                               (_cpu_cli, _species_cli(comm, fq, "cpu",
+                                                       m8)[1]))
+        for m8 in (False, True))
+    dbbuild_run, merge_cli_run = (
+        background.apply_async(_in_background, (fn,))
+        for fn in (dbbuild_prepare, merge_cli_prepare))
     tp_species_launches, tp_variants = phase_tp_species(comm, fq, truth,
                                                         main_run, smi_line)
     variants += tp_variants
     torch.cuda.empty_cache()
     m8_launches, m8_variant = phase_species_m8(prof, fq, main_run, smi_line)
     variants.append(m8_variant)
-    phase_cpu_vs_card(comm, fq)
-    m8_cli_launches = phase_m8_cli(comm, fq, smi_line)
+    phase_cpu_vs_card(comm, fq, cpu_run)
+    m8_cli_launches = phase_m8_cli(comm, fq, m8_cpu_run, smi_line)
     del prof
     torch.cuda.empty_cache()
     gcomm, gfq, gprof = phase_genes_data()
+    merge_main_sim = background.apply_async(_in_background,
+                                            (merge_main_simulate, gcomm))
     variants += phase_genes_kernels(gprof, gfq)
     genes_launches = phase_genes_main(gcomm, gprof, gfq)
     genes_cli = phase_genes_cpu(comm, fq)
@@ -2868,10 +3439,15 @@ def main():
     del sprof
     torch.cuda.empty_cache()
     snps_cli = phase_snps_cpu(comm, fq)
+    dbbuild_launches = phase_dbbuild_main(
+        dbbuild_run.get(BACKGROUND_TIMEOUT), smi_line)
     paired_cli = phase_paired_cli(comm, smi_line)
     multirank_launches = phase_multirank(comm, fq, smi_line)
-    merge_cli_launches = phase_merge_cli(smi_line)
-    merge_main_launches = phase_merge_main(gcomm, smi_line)
+    merge_cli_launches, merge_cli_dirs = phase_merge_cli(
+        merge_cli_run.get(BACKGROUND_TIMEOUT), smi_line)
+    merge_main_launches, merged_snps = phase_merge_main(
+        gcomm, merge_main_sim.get(BACKGROUND_TIMEOUT), smi_line)
+    phase_analysis_main(merged_snps, merge_cli_dirs, smi_line)
     by_path = {"species": main_run["launches"], "genes": genes_launches,
                "genes_cli_global": genes_cli["global"]["card_launches"],
                "snps": snps_launches,
@@ -2883,7 +3459,8 @@ def main():
                "species_m8": m8_launches, "m8_cli": m8_cli_launches,
                "merge_cli": merge_cli_launches,
                "merge_main": merge_main_launches, **multirank_launches,
-               "tp_step": tp_step_launches, "tp_species": tp_species_launches,
+               "dbbuild_main": dbbuild_launches,
+               "tp_step": tp_step_launches, **tp_species_launches,
                **tp_genes_launches, **tp_snps_launches}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,13 @@ cli.run_midas CLI) run on the card by default (device="cuda") and raise
 without one; they run on the CPU, with the plain PyTorch versions of the
 kernels, only when the caller passes device="cpu".
 
-Ported so far: `run_midas species|genes|snps` (reads single-end or
-mate-paired; species with --m8) and `merge_midas`, on one device or
-over several processes, one rank per card (dist/driver.py).
+Ported: `run_midas species|genes|snps` (reads single-end or
+mate-paired; species with --m8) and `merge_midas`, on one device, over
+several processes, one rank per card (dist/driver.py), or with the index
+in tensor-parallel shards (dist/sharded.py); the analysis tools
+(cli/analysis.py), `split_reads` and `build_midas_db` (cli/build_db.py),
+host numpy like midas_tpu's. Not ported: profile/sparse_counts.py (the
+port reads counts back dense).
 """
 
 __version__ = "0.1.0"

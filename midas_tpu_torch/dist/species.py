@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from midas_tpu_torch.align.params import ScoringParams
-from midas_tpu_torch.align.pipeline import _align_batch_stages
+from midas_tpu_torch.align.pipeline import Aligner, _align_batch_stages
 from midas_tpu_torch.align.seed import SeedParams, pack_words_host
+from midas_tpu_torch.db.index import build_seed_index
 from midas_tpu_torch.db.refpack import ReferencePack
 from midas_tpu_torch.dist.sharded import Shard, ShardedAligner, shard_index
 from midas_tpu_torch.profile import device_steps as ds
@@ -101,8 +102,7 @@ class DistributedSpeciesProfiler(SpeciesProfiler):
     shards (ShardedAligner, across dist/sharded.py::shard_devices); the
     same run() -> abundance surface, with the device classifier run by
     dist_species_update. The checkpoint is kind "species-dist", its
-    fingerprint with tp (and, under several ranks, the rank's stride).
-    The --m8 host path is a single-device feature here."""
+    fingerprint with tp (and, under several ranks, the rank's stride)."""
 
     def __init__(self, db, tp: int = 1, **kw):
         self.tp = int(tp)
@@ -115,12 +115,26 @@ class DistributedSpeciesProfiler(SpeciesProfiler):
 
     def run(self, read_paths, read_length=None, max_reads=None,
             batch_size: int = 8192, m8_path=None, checkpoint_path=None):
-        if m8_path is not None:
-            raise ValueError("--m8 reads every alignment back to the host "
-                             "and runs on one device: use SpeciesProfiler")
-        return super().run(read_paths, read_length=read_length,
-                           max_reads=max_reads, batch_size=batch_size,
-                           checkpoint_path=checkpoint_path)
+        """As SpeciesProfiler.run. With m8_path every alignment is read
+        back for the m8 rows: the inherited host path runs on one
+        Aligner over the whole pack, built here on the profiler's device
+        (shard 0's), as midas_tpu's sharded profiler keeps the
+        single-device aligner for it."""
+        if m8_path is None:
+            return super().run(read_paths, read_length=read_length,
+                               max_reads=max_reads, batch_size=batch_size,
+                               checkpoint_path=checkpoint_path)
+        sharded = self.aligner
+        self.aligner = Aligner(
+            self.pack, build_seed_index(self.pack, k=sharded.seed_params.k),
+            sharded.scoring, sharded.seed_params,
+            max_read_len=sharded.max_read_len, device=self.device)
+        try:
+            return super().run(read_paths, read_length=read_length,
+                               max_reads=max_reads, batch_size=batch_size,
+                               m8_path=m8_path)
+        finally:
+            self.aligner = sharded
 
     def _amb_width(self) -> int:
         # amb rows hold the gathered [tp * C] candidate table

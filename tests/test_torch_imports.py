@@ -40,7 +40,13 @@ def test_port_imports_no_jax_and_no_midas_tpu():
               "align.cuda_sw", "align.oracle", "merge", "merge.core",
               "merge.species", "merge.genes", "merge.snps", "utils",
               "cli.run_midas", "cli.merge_midas", "dist", "dist.driver",
-              "dist.sharded", "dist.species", "dist.profilers"):
+              "dist.sharded", "dist.species", "dist.profilers",
+              "analyze", "analyze.parse_snps", "analyze.consensus",
+              "analyze.diversity", "analyze.track_strains",
+              "analyze.compare_genes", "analyze.query_compound",
+              "cli.analysis", "cli.split_reads", "dbbuild",
+              "dbbuild.build_db", "dbbuild.cluster", "dbbuild.hmm",
+              "cli.build_db"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
     assert got["bad"] == []
     assert not got["cuda_initialized"]

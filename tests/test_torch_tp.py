@@ -288,6 +288,33 @@ def test_species_profile_tp2_equals_midas_tpu(request, sim_community,
             _read(str(tmp_path / "tp2.txt"))
 
 
+@pytest.mark.parametrize("data", ["sim", "mixed_ties"])
+def test_species_m8_tp2_equals_midas_tpu(request, sim_community, sim_reads,
+                                         tmp_path, data):
+    """DistributedSpeciesProfiler.run(m8_path=...) at tp = 2 (fault k):
+    alignments.m8 byte for byte and the abundance equal to midas_tpu's
+    DistributedSpeciesProfiler on make_mesh(2, tp=2), which runs the
+    inherited host path on its single-device aligner; afterwards the
+    profiler still holds its shards and its device path still gives the
+    same abundance."""
+    if data == "sim":
+        db_dir, fq = sim_community.db_dir, sim_reads[0]
+    else:
+        db_dir, fq = request.getfixturevalue("mixed_ties")
+    jprof = jspecies.DistributedSpeciesProfiler(
+        JDatabase(db_dir), mesh=jsharded.make_mesh(2, tp=2))
+    want = jprof.run([fq], batch_size=BATCH, m8_path=str(tmp_path / "j.m8"))
+    tprof = DistributedSpeciesProfiler(TDatabase(db_dir), tp=2, device="cpu")
+    got = tprof.run([fq], batch_size=BATCH, m8_path=str(tmp_path / "t.m8"))
+    m8 = _read(str(tmp_path / "t.m8"))
+    assert m8 == _read(str(tmp_path / "j.m8"))
+    assert m8.count(b"\n") > 300
+    assert got == want
+    assert tprof.stats == jprof.stats
+    assert isinstance(tprof.aligner, tsharded.ShardedAligner)
+    assert tprof.run([fq], batch_size=BATCH) == got
+
+
 def test_species_fingerprint_changes_with_tp(sim_community, sim_reads,
                                              tmp_path, monkeypatch):
     """The species checkpoint's fingerprint holds tp: a state saved at
