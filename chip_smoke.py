@@ -78,7 +78,18 @@ Phases, each printing one JSON line:
              reference at >= 99% of sites with depth >= 3, mapped reads
              for every species), and one species' sites are written and
              read back (depth = the sum of the four counts).
-14. snps_cpu     — `run_midas snps -n 2048` through the CLI on the
+13a. readback    — phase 13's final counts, put back on the card as the
+             flat [4 x (G+1)] int32 tensor with junk at flat G (no new
+             run of the stream), and a thinned copy (every 16th covered
+             run kept): the whole int32 copy and the sparse route
+             (pageable and pinned host copies each) and
+             counts_host_sparse, best of 3 in alternating order, all
+             equal byte for byte, and the route taken no slower than
+             the whole copy (READBACK_SLACK); snps_state_host's counts
+             equal too. The route, the statistics, the host costs
+             route_seconds weighs as measured here, its predictions and
+             the seconds.
+14. snps_cpu    — `run_midas snps -n 2048` through the CLI on the
              phase-3 database's first 20 species, on the card and on the
              CPU, in -m global and -m local: summary.txt, every
              decompressed .snps.gz and the saved state must be identical.
@@ -195,8 +206,11 @@ card), run beside the 1-shard profilers of the phases they follow:
              calls held to the plain version; then run_genes_multihost
              (tp=2) on the card against the CPU at 2,048 reads.
 27. tp_snps      — after phase 17: the same for the snps cell (counts,
-             counters and gapped rows equal; the stripe readback timed),
-             then run_snps_multihost(tp=2) -m global card vs CPU.
+             counters and gapped rows equal; the stripe readback timed,
+             and each stripe alone through the whole int32 copy and
+             counts_host_sparse, the route taken no slower than the
+             whole copy), then run_snps_multihost(tp=2) -m
+             global card vs CPU.
 
 The database-build and analysis phases:
 
@@ -1824,7 +1838,10 @@ def _paired_variants(prof, reads, step_fn, path):
 
 
 def phase_snps_main(gcomm, prof, fq):
-    return _snps_cell(gcomm, prof, fq, "snps_main")[0]
+    """SnpsProfiler.run over the snps cell's reads (_snps_cell). Returns
+    (launches, the run's result, for phase readback)."""
+    launches, _, res = _snps_cell(gcomm, prof, fq, "snps_main")
+    return launches, res
 
 
 def phase_paired_snps_main(gcomm, prof, reads, smi_line):
@@ -1832,14 +1849,15 @@ def phase_paired_snps_main(gcomm, prof, reads, smi_line):
     run_snps calls it: snps_main's checks and figures, with the pair
     pick, the concordant share and K3 / K2 held to the plain version on
     the first paired batch. Returns (launches, variant records)."""
-    return _snps_cell(gcomm, prof, reads, "paired_snps_main", smi_line)
+    return _snps_cell(gcomm, prof, reads, "paired_snps_main", smi_line)[:2]
 
 
 def _snps_cell(gcomm, prof, fq, phase, smi_line=None):
     """One snps cell: SnpsProfiler.run with a checkpoint path over fq
     (single-end reads, or a tuple (-1, -2) of mate pairs), checked
     against the simulator's truth; emits `phase` and returns the run's
-    kernel launches and (paired) the first batch's variant records."""
+    kernel launches, (paired) the first batch's variant records and the
+    run's result."""
     import torch
 
     from midas_tpu_torch.align import cuda_sw
@@ -1936,7 +1954,180 @@ def _snps_cell(gcomm, prof, fq, phase, smi_line=None):
          covered_sites=int((depth > 0).sum()),
          writer_sites=sites, writer_seconds=write_s,
          writer_seconds_per_million_sites=write_s / (sites / 1e6), **extra)
-    return launches, variants
+    return launches, variants, res
+
+
+# the pileup's dump slot (flat index G) as the readback finds it: the
+# bases the stream discarded; every route must zero it
+READBACK_JUNK = 1 << 20
+# counts_host_sparse may take this much longer than the whole int32 copy
+# (its statistics pass, ~2% of the copy at 30 Mb, and the spread of the
+# host's clock between best-of-3 times)
+READBACK_SLACK = 1.15
+# the thinned counts keep every READBACK_THIN-th covered run
+READBACK_THIN = 16
+
+
+def _timed(fn, n=3):
+    """(seconds of each of n calls, each between card synchronisations;
+    the last call's result)."""
+    import torch
+
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return secs, out
+
+
+def _pinned_host(t):
+    """sparse_counts._host through a pinned buffer and a non_blocking
+    copy, synchronised before numpy sees the buffer (the alternative the
+    readback phase measures)."""
+    import torch
+
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return buf.numpy()
+
+
+def _fill_host(n):
+    """A fresh zeroed int32 host array of n entries, one entry of every
+    4 KiB page written (the sparse decode's output before its sites)."""
+    out = np.zeros(n, np.int32)
+    out[::1024] = 1
+    return out
+
+
+def _thin_runs(full, G):
+    """[4, G+1] counts with only every READBACK_THIN-th covered run kept."""
+    covered = full[:, :G].any(axis=0)
+    start = covered & ~np.concatenate([[False], covered[:-1]])
+    keep = np.cumsum(start) % READBACK_THIN == 1
+    out = full.copy()
+    out[:, :G] *= keep
+    return out
+
+
+def _readback_case(counts, G, want):
+    """Both routes and counts_host_sparse on one flat count tensor on the
+    card, best of 3 in alternating order, against want; the host costs
+    route_seconds weighs as measured on these counts; fails unless every
+    result equals want, the tensor is unchanged and the route taken is
+    within READBACK_SLACK of the whole copy. Returns the figures."""
+    import torch
+
+    from midas_tpu_torch.profile import sparse_counts as sc
+
+    phase_a_s, (pa, stats) = _timed(lambda: sc._phase_a(counts, G))
+    del pa
+    real_host = sc._host
+    whole = lambda: sc._whole_host(counts, G)  # noqa: E731
+    sparse = lambda: sc._sparse_host(*sc._phase_a(counts, G), G)  # noqa
+    runs = [("whole", whole, real_host),
+            ("counts_host_sparse",
+             lambda: sc.counts_host_sparse(counts, G), real_host),
+            ("whole_pinned", whole, _pinned_host),
+            ("sparse", sparse, real_host),
+            ("sparse_pinned", sparse, _pinned_host)]
+    secs, outs = {}, {}
+    sc.ROUTES.clear()
+    try:
+        # three rounds, every other one in reverse order, so that no
+        # variant always runs first (the host's allocator warms up)
+        for rnd in range(3):
+            for name, fn, host in runs[::-1] if rnd % 2 else runs:
+                sc._host = host
+                t, outs[name] = _timed(fn, 1)
+                secs.setdefault(name, []).extend(t)
+    finally:
+        sc._host = real_host
+    route, = sc.ROUTES
+    # the sparse route's host copies alone, each after a synchronisation
+    copy_s = []
+
+    def timed_host(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real_host(t)
+        finally:
+            copy_s.append(time.perf_counter() - t0)
+
+    sc._host = timed_host
+    try:
+        sc._sparse_host(*sc._phase_a(counts, G), G)
+    finally:
+        sc._host = real_host
+    fill_s, _ = _timed(lambda: _fill_host(want.shape[0]))
+    for name, out in outs.items():
+        if out.dtype != np.int32 or out.tobytes() != want.tobytes():
+            fail(f"readback: {name} differs from the counts")
+    if int(counts[G]) != READBACK_JUNK:
+        fail("readback: a route wrote into the device counts")
+    best = {k: min(v) for k, v in secs.items()}
+    if best["counts_host_sparse"] > READBACK_SLACK * best["whole"]:
+        fail(f"readback: the {route} route took "
+             f"{best['counts_host_sparse']:.4f} s, the whole copy "
+             f"{best['whole']:.4f} s")
+    whole_b = want.nbytes
+    pred_sparse, pred_whole = sc.route_seconds(G, stats)
+    return dict(
+        stats=dict(zip(("n_covered", "n_impure", "n_runs", "max_depth",
+                        "max_count"), stats)),
+        route=route, bytes=dict(whole=whole_b,
+                                sparse=sc.sparse_bytes(G, stats)),
+        phase_a_seconds=min(phase_a_s),
+        sparse_copies_seconds=sum(copy_s),
+        fill_seconds=min(fill_s),
+        host_costs=dict(
+            whole_bytes_per_s=whole_b / best["whole"],
+            fill_bytes_per_s=whole_b / min(fill_s),
+            site_s=(best["sparse"] - min(phase_a_s) - sum(copy_s)
+                    - min(fill_s)) / max(stats[0], 1)),
+        predicted_seconds=dict(sparse=pred_sparse, whole=pred_whole),
+        seconds=best, all_seconds=secs)
+
+
+def phase_readback(prof, res, smi_line):
+    """The end-of-stream counts readback on phase snps_main's final counts
+    (no new run of the stream), put back on the card as the flat
+    [4 x (G+1)] int32 tensor with junk at flat G, and on a thinned copy
+    of them (every READBACK_THIN-th covered run: the coverage of fewer
+    reads over the same genomes): _readback_case on each; then
+    snps_state_host's counts on the full ones."""
+    import torch
+
+    from midas_tpu_torch.profile import device_steps as ds
+
+    G, S = prof.pack.total_len, len(prof.species_ids)
+    full = np.zeros((4, G + 1), np.int32)
+    full[:, :G] = res["counts"]
+    cases = {}
+    for name, arr in (("full", full), ("thinned", _thin_runs(full, G))):
+        want = arr.reshape(-1)
+        counts = torch.from_numpy(want).to("cuda")
+        counts[G] = READBACK_JUNK
+        cases[name] = _readback_case(counts, G, want)
+        del counts
+    want = full.reshape(-1)
+    state = ds.snps_init(G, S, 1, prof.aligner.max_read_len, "cuda")
+    state.counts.copy_(torch.from_numpy(want))
+    state.counts[G] = READBACK_JUNK
+    t = time.perf_counter()
+    host = ds.snps_state_host(state)
+    state_s = time.perf_counter() - t
+    if host["counts"].tobytes() != want.tobytes():
+        fail("readback: snps_state_host's counts differ from the counts")
+    del state
+    torch.cuda.empty_cache()
+    emit("readback", genome=G, counts_bytes_int32=want.nbytes,
+         slack=READBACK_SLACK, thin=READBACK_THIN, **cases,
+         state_host_seconds=state_s, equal=True, card=smi_line)
 
 
 def _check_sites_file(path, counts, pack, contig_species, si):
@@ -3263,19 +3454,22 @@ def phase_tp_snps(gcomm, sprof, gfq, pairs, comm, fq, smi_line):
     """The snps cell's 10 species (30 Mb, two count stripes) at tp = 2 on
     this card, beside phase snps_main's tp = 1 profiler, over the first
     16,384 reads and 8,192 mate pairs: counts, counters and gapped rows
-    equal (_tp_two_pass), the end-of-stream stripe readback timed; then
+    equal (_tp_two_pass), the end-of-stream stripe readback timed, and
+    each stripe alone through the whole int32 copy and counts_host_sparse
+    (the route taken within READBACK_SLACK of the whole copy); then
     run_snps_multihost(tp=2) -m global card against CPU at 2,048 reads.
     Returns (launches by path, variant records)."""
     import torch
 
     from midas_tpu_torch.db.layout import Database
     from midas_tpu_torch.dist.profilers import DistributedSnpsProfiler
+    from midas_tpu_torch.profile import sparse_counts as sc
 
     t = time.perf_counter()
     tprof = DistributedSnpsProfiler(Database(gcomm.db_dir),
                                     sprof.species_ids, tp=TP, device="cuda")
     setup = time.perf_counter() - t
-    readback = []
+    readback, last = [], {}
     real = tprof._state_host
 
     def state_host(state):
@@ -3284,14 +3478,34 @@ def phase_tp_snps(gcomm, sprof, gfq, pairs, comm, fq, smi_line):
             return real(state)
         finally:
             readback.append(time.perf_counter() - t)
+            last["stripes"] = state.stripes
 
     tprof._state_host = state_host
     figures, launches, variants = _tp_two_pass(
         "tp_snps", "tp snps", tprof, sprof, (gfq, pairs),
         ("codes", "quals", "lengths", "mean_qual"),
         ("counts", "aligned_reads", "mapped_reads", "n_gapped"), smi_line)
-    stripes = [dict(real_len=int(n), bytes=4 * 4 * (tprof.stripe_len + 1))
-               for n in tprof.stripe_real]
+    # the last run's stripes alone: the whole int32 copy against
+    # counts_host_sparse (the route its statistics pick), best of 3
+    SL = tprof.stripe_len
+    stripes = []
+    for n, stripe in zip(tprof.stripe_real, last.pop("stripes")):
+        whole_s, whole = _timed(lambda: stripe.to("cpu", copy=True).numpy())
+        sc.ROUTES.clear()
+        route_s, got = _timed(lambda: sc.counts_host_sparse(stripe, SL))
+        whole[SL] = 0
+        if not np.array_equal(got, whole):
+            fail("tp_snps: a stripe's counts_host_sparse differs from it")
+        route, = sc.ROUTES
+        if min(route_s) > READBACK_SLACK * min(whole_s):
+            fail(f"tp_snps: a stripe's {route} route took {min(route_s):.4f}"
+                 f" s, the whole copy {min(whole_s):.4f} s")
+        _, stats = sc._phase_a(stripe, SL)
+        stripes.append(dict(real_len=int(n), bytes=4 * 4 * (SL + 1),
+                            n_covered=stats[0],
+                            whole_readback_seconds=min(whole_s),
+                            route_readback_seconds=min(route_s),
+                            route=route))
     del tprof
     torch.cuda.empty_cache()
     cli_launches, cli_secs = _tp_cli_check(comm, fq, "snps", "global",
@@ -3429,7 +3643,9 @@ def _phases(kind, smi_line, background):
     torch.cuda.empty_cache()
     sprof = phase_snps_data(gcomm)
     variants += phase_snps_kernels(sprof, gfq)
-    snps_launches = phase_snps_main(gcomm, sprof, gfq)
+    snps_launches, snps_res = phase_snps_main(gcomm, sprof, gfq)
+    phase_readback(sprof, snps_res, smi_line)
+    del snps_res
     paired_snps_launches, paired_variants = phase_paired_snps_main(
         gcomm, sprof, pairs, smi_line)
     variants += paired_variants

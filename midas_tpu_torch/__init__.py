@@ -16,8 +16,10 @@ mate-paired; species with --m8) and `merge_midas`, on one device, over
 several processes, one rank per card (dist/driver.py), or with the index
 in tensor-parallel shards (dist/sharded.py); the analysis tools
 (cli/analysis.py), `split_reads` and `build_midas_db` (cli/build_db.py),
-host numpy like midas_tpu's. Not ported: profile/sparse_counts.py (the
-port reads counts back dense).
+host numpy like midas_tpu's; and the end-of-stream pileup readback
+(profile/sparse_counts.py: the sparse route or the whole int32 copy, by
+the card host's measured costs; midas_tpu's tiered counts_host and
+async snapshot are left out, no faster on the H100).
 """
 
 __version__ = "0.1.0"

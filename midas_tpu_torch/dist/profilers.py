@@ -23,8 +23,9 @@ a batch, at P = B x C and P = B.
 The SNP pileup count tensor, the one large accumulator ([4 x genome]),
 stays striped by shard: shard j owns the [4 x (stripe_len + 1)] counts
 of its slice on its device (column stripe_len the dump), and only its
-own kept gapless reads add to it. The per-stripe readback at the end of
-the stream is dense.
+own kept gapless reads add to it. At the end of the stream each stripe
+is read back through the sparse readback (profile/sparse_counts.py) on
+its own device.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from midas_tpu_torch.dist.species import gather_tables, on_device
 from midas_tpu_torch.profile import device_steps as ds
 from midas_tpu_torch.profile.genes import GenesProfiler
 from midas_tpu_torch.profile.snps import SnpsProfiler
+from midas_tpu_torch.profile.sparse_counts import counts_host_sparse
 
 # pass-1 planes: all that best-hit choice, pairing, MAPQ and the
 # duplicate drop need
@@ -294,9 +296,12 @@ class DistributedSnpsProfiler(SnpsProfiler):
         return st
 
     def _state_host(self, state: StripedSnpsState) -> Dict[str, np.ndarray]:
-        h = ds.snps_state_host(state)
+        """snps_state_host with the counts read back stripe by stripe,
+        each through the sparse readback on its own device (its dump
+        column at local index stripe_len), then reassembled."""
+        h = ds.snps_state_host_without_counts(state)
         h["counts"] = self._reassemble_counts(np.stack(
-            [s.cpu().numpy() for s in state.stripes]))
+            [counts_host_sparse(s, self.stripe_len) for s in state.stripes]))
         return h
 
     def _snps_step(self, state, contig_species, codes, quals, lengths,

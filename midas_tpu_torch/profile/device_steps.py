@@ -35,6 +35,7 @@ from midas_tpu_torch.align.pipeline import (_align_batch_stages,
                                             align_chosen_full)
 from midas_tpu_torch.align.seed import (SeedParams, revcomp_batch,
                                         reverse_batch)
+from midas_tpu_torch.profile.sparse_counts import counts_host_sparse
 
 NEG_INF = -1e30
 SPILL_FIELDS = ("amb_sp", "amb_bp", "amb_seq", "amb_ord")
@@ -647,19 +648,26 @@ def snps_init(total_len: int, n_species: int, gap_cap: int, max_len: int,
     )
 
 
-def snps_state_host(state: SnpsState) -> Dict[str, np.ndarray]:
-    """Host snapshot: the dense counts with the dump slot zeroed (as
-    midas_tpu's readback gives them), the gap buffers sliced to their
-    occupied rows, the per-species counters; gap_n is the TRUE count."""
-    G = state.counts.shape[0] // 4 - 1
+def snps_state_host_without_counts(state) -> Dict[str, np.ndarray]:
+    """snps_state_host's fields but the counts: the gap buffers sliced to
+    their occupied rows, the per-species counters; gap_n is the TRUE
+    count."""
     cap = state.gap_codes.shape[0] - 1
     out, gap_n = sliced_spill_host(
         {k: getattr(state, k) for k in GAP_FIELDS}, state.gap_n, cap)
     for k in ("aligned_reads", "mapped_reads"):
         out[k] = getattr(state, k).cpu().numpy()
     out["gap_n"] = np.int64(gap_n)
-    out["counts"] = state.counts.to("cpu", copy=True).numpy()
-    out["counts"][G] = 0
+    return out
+
+
+def snps_state_host(state: SnpsState) -> Dict[str, np.ndarray]:
+    """Host snapshot: snps_state_host_without_counts and the counts
+    through profile/sparse_counts.py (int32, the dump slot zeroed, as
+    midas_tpu's readback gives them)."""
+    out = snps_state_host_without_counts(state)
+    out["counts"] = counts_host_sparse(state.counts,
+                                       state.counts.shape[0] // 4 - 1)
     return out
 
 

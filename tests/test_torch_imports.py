@@ -2,10 +2,14 @@
 dp_batch_sweep.py) imports neither JAX nor anything of the JAX package,
 and importing it touches no card."""
 
+import importlib
+import inspect
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,7 +50,24 @@ def test_port_imports_no_jax_and_no_midas_tpu():
               "analyze.compare_genes", "analyze.query_compound",
               "cli.analysis", "cli.split_reads", "dbbuild",
               "dbbuild.build_db", "dbbuild.cluster", "dbbuild.hmm",
-              "cli.build_db"):
+              "cli.build_db", "profile.sparse_counts"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
     assert got["bad"] == []
     assert not got["cuda_initialized"]
+
+
+@pytest.mark.parametrize("package", ["io", "db", "testkit"])
+def test_port_packages_reexport_midas_tpu_names(package):
+    """Every public name a midas_tpu package re-exports from its modules
+    is re-exported by the port's package of the same name, from the
+    port's own modules."""
+    jmod = importlib.import_module(f"midas_tpu.{package}")
+    tmod = importlib.import_module(f"midas_tpu_torch.{package}")
+    names = [n for n, v in vars(jmod).items()
+             if not n.startswith("_") and not inspect.ismodule(v)]
+    assert names
+    for n in names:
+        assert hasattr(tmod, n), f"midas_tpu_torch.{package}.{n}"
+        v = getattr(tmod, n)
+        if inspect.isclass(v) or inspect.isfunction(v):
+            assert v.__module__.startswith(f"midas_tpu_torch.{package}."), n
