@@ -237,6 +237,19 @@ The database-build and analysis phases:
              and a copy of its database with two genes annotated. Each
              tool's seconds, and seconds per million merged sites.
 
+The bench phase (last, when every profiler of the phases above is
+freed):
+
+30. bench        — `python -m midas_tpu_torch.bench` in this process
+             (bench/__main__.py, the port's bench.py: species, genes and
+             snps end to end on a 12-species toy community, best of 3
+             equal reps, the device-only rates, and the trimmed scale
+             line at 500 species x 100 kb): its JSON line as the bench
+             prints it, then the phase's checks (bench.py's keys, every
+             rate above 0, the card in its platform, K1, K3 with qpen
+             and K2 launched by each leg that runs them), its seconds
+             and the script's seconds so far.
+
 Then the kernels line: banded_sw (K1 on the packed kernel, timed at
 the species batch as in earlier runs, species launches),
 banded_sw_k3_qpen (K3 on the packed kernel, timed at genes pass 1,
@@ -247,7 +260,8 @@ banded_sw_k3_qpen_glocal (K3 GLOBAL, timed at snps pass 1, snps
 launches), banded_sw_k2_glocal (K2 GLOBAL, timed at snps pass 2, snps
 launches) and banded_sw_k1_glocal (K1 GLOBAL, timed at tp_step, its
 launches), each with every path's launches (the paired, m8, merge,
-multirank, tp, tp m8 and dbbuild paths' among them), and as the last line
+multirank, tp, tp m8, dbbuild and bench paths' among them), and as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure exits non-zero before the last line. Work files go to
 build/chip_smoke/ in this checkout.
@@ -265,6 +279,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from midas_tpu_torch.bench.common import cuda_ms
+from midas_tpu_torch.bench.common import smi_line as nvidia_smi_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -353,23 +370,6 @@ def dp_bound(qlens, P, L, n_stats, local, qual_pen, band=16):
             cells, ops, nbytes)
 
 
-def cuda_ms(fn, reps):
-    """(mean milliseconds of fn() on the card by CUDA events, after one
-    warm-up call; fn's last result)."""
-    import torch
-
-    out = fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
 def _background_init():
     """The background worker: the lowest CPU priority and one torch
     thread, so that it takes one otherwise idle core and leaves the
@@ -407,12 +407,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is false)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr}")
-    line = smi.stdout.strip().splitlines()[0]
+    line = nvidia_smi_line()
     print(line, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(),
@@ -696,51 +691,13 @@ def _species_truth(abundance, truth):
 
 
 def _device_step(prof, fq):
-    """Mean device ms of species_update on one batch, and a per-stage
-    breakdown of the same work, by CUDA events."""
-    import torch
-
-    from midas_tpu_torch.align import pipeline as pl
-    from midas_tpu_torch.align.params import MARKER_SCORING
-    from midas_tpu_torch.align.seed import find_candidates, gather_windows_packed
-    from midas_tpu_torch.profile import device_steps as ds
+    """Mean device ms of species_update on the main path's first batch,
+    and a per-stage breakdown of the same work, by CUDA events
+    (bench/budget.py)."""
+    from midas_tpu_torch.bench.budget import device_step
 
     (b, codes, qlens), _ = _main_batch_pairs(prof, fq)
-    al = prof.aligner
-    sp = al.seed_params
-    n_species = len(prof.species_order)
-    seq_species = torch.from_numpy(prof.seq_species).cuda()
-    seq_cutoff = torch.from_numpy(prof.seq_cutoff).cuda()
-    min_score = torch.from_numpy(MARKER_SCORING.evalue_min_score(
-        np.maximum(np.arange(al.max_read_len + 1), 1),
-        float(prof.pack.total_len))).cuda()
-    state = ds.species_init(n_species, sp.num_cands, 2 * BATCH, prof.device)
-
-    def step():
-        state.amb_n.zero_()
-        ds.species_update(state, al.index_arrays, al.pack_arrays,
-                          seq_species, seq_cutoff, codes, qlens, b.n_reads, 0,
-                          scoring=al.scoring, seed_params=sp,
-                          max_len=al.max_read_len, aln_cov=prof.aln_cov,
-                          n_species=n_species, min_score=min_score)
-
-    step_ms, _ = cuda_ms(step, 5)
-    D, L = sp.band_width, codes.shape[1]
-    B, C = codes.shape[0], sp.num_cands
-    r = {}
-    r["seed"], c = cuda_ms(lambda: find_candidates(
-        al.index_arrays, codes, qlens, sp, al.max_read_len), 5)
-    r["window_gather"], (win, _) = cuda_ms(lambda: gather_windows_packed(
-        al.pack_arrays["words"], al.pack_arrays["nmask"],
-        al.pack_arrays["offsets"], c["diag"] - D // 2, L + D - 1,
-        center=c["diag"] + qlens[:, None] // 2), 5)
-    win = win.reshape(B * C, L + D - 1)
-    r["pair_prep"], (q_pair, ql_pair, _) = cuda_ms(lambda: pl._prepare_pairs(
-        codes, qlens, c["strand"], c["rc"]), 5)
-    r["banded_dp"], _ = cuda_ms(lambda: pl.dispatch_banded_align(
-        q_pair, ql_pair, win, al.scoring, D), 5)
-    r["classify_and_rest"] = step_ms - sum(r.values())
-    return step_ms, r
+    return device_step(prof, codes, qlens, b.n_reads)
 
 
 def _same_files(a, b, files, what):
@@ -3516,6 +3473,54 @@ def phase_tp_snps(gcomm, sprof, gfq, pairs, comm, fq, smi_line):
     return {"tp_snps": launches, "tp_snps_cli": cli_launches}, variants
 
 
+# the bench line's keys (bench.py's) and the kernels each of its legs
+# must launch
+BENCH_DETAIL_KEYS = (
+    "pangenome_reads_per_sec", "pangenome_vs_baseline", "snps_reads_per_sec",
+    "snps_vs_baseline", "pileup_sites_per_sec", "marker_device_reads_per_sec",
+    "snps_device_reads_per_sec", "n_reads", "scale_marker_reads_per_sec",
+    "scale_pangenome_reads_per_sec", "scale_snps_reads_per_sec",
+    "scale_rep_pack_mb", "scale_n_reads", "scale_snps_vs_baseline",
+    "platform", "launches")
+BENCH_LEG_KERNELS = {"species": ("K1",), "genes": ("K3_qpen", "K2"),
+                     "snps": ("K3_qpen", "K2"), "species_device": ("K1",),
+                     "snps_device": ("K3_qpen", "K2"),
+                     "scale": ("K1", "K3_qpen", "K2")}
+
+
+def phase_bench(kind, smi, t_start):
+    """`python -m midas_tpu_torch.bench` in this process at bench.py's
+    sizes, after every profiler of the earlier phases is freed: its JSON
+    line's keys, every rate above 0, the card in its platform, and each
+    leg's kernels launched. Equal results across reps are the bench's own
+    check (bench.common.best_of raises otherwise)."""
+    from midas_tpu_torch.align import cuda_sw
+    from midas_tpu_torch.bench.__main__ import main as bench_main
+
+    cuda_sw.LAUNCHES.clear()
+    t0 = time.time()
+    rec = bench_main([])
+    secs = time.time() - t0
+    launches = dict(cuda_sw.LAUNCHES)
+    det = rec["detail"]
+    if set(rec) != {"metric", "value", "unit", "vs_baseline", "detail"} \
+            or set(BENCH_DETAIL_KEYS) - set(det):
+        fail(f"bench line keys {sorted(rec)}, detail {sorted(det)}")
+    rates = {k: v for k, v in det.items() if k.endswith("_per_sec")}
+    if rec["value"] <= 0 or min(rates.values()) <= 0:
+        fail(f"bench rates not above 0: {rec['value']}, {rates}")
+    if kind not in det["platform"] or smi not in det["platform"]:
+        fail(f"bench platform {det['platform']!r} does not name the card")
+    missing = [(leg, k) for leg, ks in BENCH_LEG_KERNELS.items() for k in ks
+               if det["launches"][leg].get(k, 0) <= 0]
+    if missing:
+        fail(f"bench legs launched no {missing}: {det['launches']}")
+    emit("bench", seconds=round(secs, 1),
+         script_seconds=round(time.time() - t_start, 1),
+         banded_sw_launches=launches, platform=det["platform"])
+    return launches
+
+
 def kernels_line(variants, by_path, smi_line):
     """The kernels line: one entry per kernel the paths run, timed at its
     path's shape, with its path's launches — banded_sw (K1, packed, at
@@ -3585,6 +3590,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "midas_tpu_torch")):
         fail("chip_smoke.py must sit at the root of a checkout of the repo "
              "(midas_tpu_torch/ beside it)")
+    t_start = time.time()
     kind, smi_line = phase_device()
     # CPU work that no phase times runs beside the phases, in one
     # background process on one niced core: the CPU halves of phases cpu,
@@ -3593,13 +3599,13 @@ def main():
     background = multiprocessing.get_context("spawn").Pool(
         1, initializer=_background_init)
     try:
-        _phases(kind, smi_line, background)
+        _phases(kind, smi_line, background, t_start)
     finally:
         background.terminate()
         background.join()
 
 
-def _phases(kind, smi_line, background):
+def _phases(kind, smi_line, background, t_start):
     import torch
 
     phase_build()
@@ -3664,6 +3670,7 @@ def _phases(kind, smi_line, background):
     merge_main_launches, merged_snps = phase_merge_main(
         gcomm, merge_main_sim.get(BACKGROUND_TIMEOUT), smi_line)
     phase_analysis_main(merged_snps, merge_cli_dirs, smi_line)
+    bench_launches = phase_bench(kind, smi_line, t_start)
     by_path = {"species": main_run["launches"], "genes": genes_launches,
                "genes_cli_global": genes_cli["global"]["card_launches"],
                "snps": snps_launches,
@@ -3677,7 +3684,8 @@ def _phases(kind, smi_line, background):
                "merge_main": merge_main_launches, **multirank_launches,
                "dbbuild_main": dbbuild_launches,
                "tp_step": tp_step_launches, **tp_species_launches,
-               **tp_genes_launches, **tp_snps_launches}
+               **tp_genes_launches, **tp_snps_launches,
+               "bench": bench_launches}
     print(json.dumps(kernels_line(variants, by_path, smi_line)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_no_midas_tpu():
               "analyze.compare_genes", "analyze.query_compound",
               "cli.analysis", "cli.split_reads", "dbbuild",
               "dbbuild.build_db", "dbbuild.cluster", "dbbuild.hmm",
-              "cli.build_db", "profile.sparse_counts"):
+              "cli.build_db", "profile.sparse_counts", "bench",
+              "bench.common", "bench.scale", "bench.budget"):
         assert f"midas_tpu_torch.{m}" in got["modules"]
     assert got["bad"] == []
     assert not got["cuda_initialized"]
