@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch._build import PACKAGE_DIR, build_dir
 from midas_tpu_torch.align.banded import FULL_FIELDS, SCORE_ONLY_FIELDS
 from midas_tpu_torch.align.params import ScoringParams
@@ -35,8 +36,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
-# launches of the kernel per variant (variant_key)
+# launches of the kernel per variant (variant_key), reported by every
+# tracing recording as rec.kept["launches"]
 LAUNCHES: collections.Counter = collections.Counter()
+tracing.keep("launches", LAUNCHES)
 
 
 def _nvcc() -> str:

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch.align import cuda_sw
 from midas_tpu_torch.align.banded import banded_align_plain
 from midas_tpu_torch.align.params import ScoringParams
@@ -113,18 +114,41 @@ def dispatch_banded_align(q_pair, qlens_pair, win_pair, scoring, band_width,
     The kernel masks its own ragged edge, so P needs no padding.
     score_only=True returns score/qend/wstart/wend only (pass 1 of the
     two-pass alignment); qpen_pair ([P, L] int8 positive penalties)
-    enables the bowtie2 quality-scaled mismatch model."""
-    kind = q_pair.device.type
-    if kind == "cuda":
-        return cuda_sw.banded_align_cuda(
-            q_pair, qlens_pair, win_pair, scoring, band_width,
-            qpen=qpen_pair, score_only=score_only)
-    if kind == "cpu":
-        return banded_align_plain(q_pair, qlens_pair, win_pair, scoring,
-                                  band_width, qpen=qpen_pair,
-                                  score_only=score_only)
+    enables the bowtie2 quality-scaled mismatch model.
+
+    Traced as the span align.dp (attrs variant, pairs), with the
+    counter dp.pairs (the pairs launched); the callers count which of
+    them are real (count_real_pairs)."""
+    P = q_pair.shape[0]
+    with tracing.span("align.dp", pairs=P, variant=cuda_sw.variant_key(
+            1 if score_only else 6, qpen_pair is not None)):
+        tracing.count("dp.pairs", P)
+        kind = q_pair.device.type
+        if kind == "cuda":
+            return cuda_sw.banded_align_cuda(
+                q_pair, qlens_pair, win_pair, scoring, band_width,
+                qpen=qpen_pair, score_only=score_only)
+        if kind == "cpu":
+            return banded_align_plain(q_pair, qlens_pair, win_pair, scoring,
+                                      band_width, qpen=qpen_pair,
+                                      score_only=score_only)
     raise ValueError(f"banded DP: no implementation for tensors on "
                      f"{q_pair.device}")
+
+
+def count_real_pairs(valid: torch.Tensor, qlens: torch.Tensor,
+                     per_read: bool = False) -> None:
+    """While tracing, add to the counter dp.real_pairs the DP pairs that
+    hold a real candidate. valid [B, C] is the candidates' valid flags:
+    pass 1 launches a pair a candidate, real where it is valid; pass 2
+    (per_read) launches a pair a read, real where the read has any
+    valid candidate. A pair whose query is empty (qlens [B]) is never
+    real. Off, it does nothing, so callers pass the flags as they are."""
+    if tracing.enabled():
+        nonempty = qlens > 0
+        real = (valid.any(dim=1) & nonempty if per_read
+                else valid & nonempty[:, None])
+        tracing.count("dp.real_pairs", real.sum())
 
 
 def _prepare_pairs(
@@ -200,16 +224,25 @@ def _candidate_pairs(index_arrays, pack_arrays, codes, qlens,
     both alignment paths. Returns (cands, winstart, seq_idx, qpen,
     dp_inputs) with dp_inputs = (q_pair [B*C, L], qlens_pair [B*C],
     ref_win [B*C, W], qpen_pair or None); qpen is set when the scoring
-    is quality-scaled and quals are given."""
+    is quality-scaled and quals are given. Traced as the span align.seed
+    (seeding and the gather), with the counter seed.candidates (valid
+    candidates) and, since every candidate goes to the DP, its pass-1
+    dp.real_pairs."""
     B, L = codes.shape
     C = seed_params.num_cands
     D = seed_params.band_width
     W = L + D - 1
-    cands = find_candidates(index_arrays, codes, qlens, seed_params, max_len)
-    winstart = cands["diag"] - D // 2
-    ref_win, seq_idx = gather_windows_packed(
-        pack_arrays["words"], pack_arrays["nmask"], pack_arrays["offsets"],
-        winstart, W, center=cands["diag"] + qlens[:, None] // 2)
+    with tracing.span("align.seed"):
+        cands = find_candidates(index_arrays, codes, qlens, seed_params,
+                                max_len)
+        winstart = cands["diag"] - D // 2
+        ref_win, seq_idx = gather_windows_packed(
+            pack_arrays["words"], pack_arrays["nmask"],
+            pack_arrays["offsets"], winstart, W,
+            center=cands["diag"] + qlens[:, None] // 2)
+        if tracing.enabled():
+            tracing.count("seed.candidates", cands["valid"].sum())
+        count_real_pairs(cands["valid"], qlens)
     qpen = (quality_penalties(quals, scoring)
             if scoring.qual_scaled and quals is not None else None)
     q_pair, qlens_pair, qpen_pair = _prepare_pairs(
@@ -378,7 +411,8 @@ def align_chosen_full(
     candidate only ([B] rows, padding rows included; the kernel's K2
     variant under a quality-scaled scoring). best_col [B] int64.
     Returns [B] planes: score, qstart, qend, matches, mismatches,
-    gap_cols, gap_opens, tstart, tend."""
+    gap_cols, gap_opens, tstart, tend. The gather is traced as
+    align.seed."""
     B, L = codes.shape
     D = seed_params.band_width
     W = L + D - 1
@@ -386,9 +420,11 @@ def align_chosen_full(
     col = best_col[:, None]
     winstart_b = torch.gather(aux["winstart"], 1, col)           # [B, 1]
     strand_b = torch.gather(aux["strand"], 1, col)[:, 0]         # [B]
-    ref_win, seq_idx = gather_windows_packed(
-        pack_arrays["words"], pack_arrays["nmask"], pack_offsets, winstart_b,
-        W, center=winstart_b + D // 2 + qlens[:, None] // 2)   # [B,1,W], [B,1]
+    with tracing.span("align.seed"):
+        ref_win, seq_idx = gather_windows_packed(
+            pack_arrays["words"], pack_arrays["nmask"], pack_offsets,
+            winstart_b, W,
+            center=winstart_b + D // 2 + qlens[:, None] // 2)  # [B,1,W], [B,1]
     is_rc = (strand_b == 1)[:, None]
     q_best = torch.where(is_rc, aux["rc"], codes)
     qpen_best = None

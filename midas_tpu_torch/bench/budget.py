@@ -8,14 +8,12 @@ stage timed alone on the outputs of the one before: seed and vote,
 window gather, pair prep, the banded DP (K1), and the classifier with
 the rest of species_update (the step less the stages before it).
 
-Host rows, by the wall clock over the same 4 batches: the native parse
-(io/batch.py::load_read_batches), the pinned side-stream upload
-(io/prefetch.py, over batches parsed beforehand), SpeciesProfiler.run
-end to end, and the remainder: the end-to-end time less the parse, the
-upload and the device step. The parse and upload run on a producer
-thread beside the device step, so a negative remainder is their
-overlap. Every row is ms per batch. Runs on the card only. Prints one
-JSON line.
+Host rows, from the spans of one recorded SpeciesProfiler.run over the
+same 4 batches (midas_tpu_torch/tracing.py): the producer thread's
+native parse (io.parse) and pinned side-stream upload (io.upload), the
+main thread's wait for a batch (io.wait), and the run end to end
+(profile.sample). Every row is ms per batch. Runs on the card only.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ import tempfile
 import numpy as np
 import torch
 
-from midas_tpu_torch.bench.common import best_of, cuda_ms, platform
+from midas_tpu_torch.bench.common import cuda_ms, platform
 
 BATCH = 8192
 N_BATCHES = 4
@@ -90,31 +88,20 @@ def device_step(prof, codes, qlens, n_reads, reps=5):
     return step_ms, r
 
 
-def host_rows(prof, fq, n_batches):
-    """Wall ms per batch, best of 3 each: the native parse, the pinned
-    side-stream upload of batches parsed beforehand, and
-    SpeciesProfiler.run end to end (after a warm run)."""
-    from midas_tpu_torch.io.batch import load_read_batches
-    from midas_tpu_torch.io.prefetch import prefetch_device_batches
+HOST_SPANS = (("parse_ms", "io.parse"), ("upload_ms", "io.upload"),
+              ("wait_ms", "io.wait"), ("end_to_end_ms", "profile.sample"))
 
-    dev, L = prof.device, prof.aligner.max_read_len
 
-    def parse():
-        return list(load_read_batches([fq], batch_size=BATCH, max_len=L))
+def host_rows(prof, fq, batch_size=BATCH):
+    """Wall ms per batch of one recorded SpeciesProfiler.run (after a
+    warm run), by span: HOST_SPANS' rows."""
+    from midas_tpu_torch import tracing
 
-    parse_s, _ = best_of(lambda: [b.codes for b in parse()], dev)
-    batches = parse()
-
-    def upload():
-        return sum(db.n_reads for db in prefetch_device_batches(
-            iter(batches), ("codes", "lengths"), device=dev))
-
-    upload_s, _ = best_of(upload, dev)
-    prof.run([fq], batch_size=BATCH)
-    run_s, _ = best_of(lambda: prof.run([fq], batch_size=BATCH), dev)
-    return {k: 1e3 * s / n_batches for k, s in (
-        ("parse_ms", parse_s), ("upload_ms", upload_s),
-        ("end_to_end_ms", run_s))}
+    prof.run([fq], batch_size=batch_size)
+    with tracing.recording() as rec:
+        prof.run([fq], batch_size=batch_size)
+    n = rec.counters["io.batches"]
+    return {k: 1e3 * rec.seconds(name) / n for k, name in HOST_SPANS}
 
 
 def run_budget() -> dict:
@@ -137,7 +124,7 @@ def run_budget() -> dict:
             steps.append(device_step(
                 prof, torch.from_numpy(b.codes).to(device),
                 torch.from_numpy(b.lengths).to(device), b.n_reads, reps=3))
-        host = host_rows(prof, fq, len(steps))
+        host = host_rows(prof, fq)
     step_ms = float(np.mean([s for s, _ in steps]))
     stage = {k: float(np.mean([r[k] for _, r in steps])) for k in steps[0][1]}
     out = dict(n_species=N_SPECIES, n_selected=N_SELECTED, batch=BATCH,
@@ -146,8 +133,6 @@ def run_budget() -> dict:
                pair_prep_ms=stage["pair_prep"], dp_ms=stage["banded_dp"],
                classify_ms=stage["classify_and_rest"], total_ms=step_ms,
                device_reads_per_sec=BATCH / step_ms * 1e3, **host)
-    out["host_remainder_ms"] = (host["end_to_end_ms"] - host["parse_ms"]
-                                - host["upload_ms"] - step_ms)
     out["platform"] = platform(device)
     return out
 

@@ -66,8 +66,10 @@ def species_parser(subs):
                    help="Trim reads to READ_LENGTH and discard reads with length < READ_LENGTH. By default, reads are not trimmed or filtered")
     p.add_argument("--profile", action="store_true", default=False,
                    help="Write a torch.profiler trace to "
-                        "<outdir>/species/torch_trace.json "
-                        "(torch_trace.rank<R>/ under several ranks)")
+                        "<outdir>/species/torch_trace.json and the "
+                        "program's spans and counters to spans.jsonl "
+                        "beside it (torch_trace.rank<R>/ under several "
+                        "ranks)")
     p.add_argument("--seed", type=int, default=42,
                    help="RNG seed for probabilistic assignment of ambiguous reads (42)")
     _add_device_arg(p)
@@ -120,8 +122,10 @@ def _add_shared_align_args(p, mode_default):
                         "the mismatch error to a warning)")
     p.add_argument("--profile", action="store_true", default=False,
                    help="Write a torch.profiler trace to "
-                        "<outdir>/<program>/torch_trace.json "
-                        "(torch_trace.rank<R>/ under several ranks)")
+                        "<outdir>/<program>/torch_trace.json and the "
+                        "program's spans and counters to spans.jsonl "
+                        "beside it (torch_trace.rank<R>/ under several "
+                        "ranks)")
     _add_device_arg(p)
     return p
 
@@ -384,7 +388,10 @@ def main(argv=None):
 
         try:
             if args.get("profile"):
+                from torch._C._profiler import _ExperimentalConfig
                 from torch.profiler import ProfilerActivity, profile
+
+                from midas_tpu_torch import tracing
 
                 acts = [ProfilerActivity.CPU]
                 if args["device"].startswith("cuda"):
@@ -396,10 +403,17 @@ def main(argv=None):
                                          f"torch_trace.rank{rank}",
                                          "torch_trace.json")
                     os.makedirs(os.path.dirname(trace), exist_ok=True)
-                with profile(activities=acts) as prof:
+                # every thread: the producer's io.* spans are on the
+                # trace beside the main thread's
+                every_thread = _ExperimentalConfig(profile_all_threads=True)
+                with profile(activities=acts,
+                             experimental_config=every_thread) as prof, \
+                        tracing.recording() as rec:
                     run(args)
                 prof.export_chrome_trace(trace)
-                log.write(f"torch trace: {trace}\n")
+                spans = os.path.join(os.path.dirname(trace), "spans.jsonl")
+                rec.write_jsonl(spans)
+                log.write(f"torch trace: {trace}\nspans: {spans}\n")
             else:
                 run(args)
         finally:

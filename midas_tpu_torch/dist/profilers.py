@@ -38,7 +38,8 @@ import torch
 
 from midas_tpu_torch.align.params import ScoringParams
 from midas_tpu_torch.align.pipeline import (align_candidates_score,
-                                            align_chosen_full)
+                                            align_chosen_full,
+                                            count_real_pairs)
 from midas_tpu_torch.align.seed import SeedParams
 from midas_tpu_torch.dist.sharded import ShardedAligner
 from midas_tpu_torch.dist.species import gather_tables, on_device
@@ -79,12 +80,13 @@ def _owner_full_stats(shards, locs, best_col, scoring, seed_params,
     shards' local columns, full: [B] planes on shard 0's device)."""
     owner = torch.div(best_col, num_cands, rounding_mode="floor")
     lcols, full = [], None
-    for j, (sh, (_out1, aux, c, ql)) in enumerate(zip(shards, locs)):
+    for j, (sh, (out1, aux, c, ql)) in enumerate(zip(shards, locs)):
         own = owner == j
         lc = torch.where(own, best_col % num_cands, 0)
         lcols.append(lc)
         f = align_chosen_full(sh.pack_arrays, aux, c, ql, on_device(lc, sh),
                               scoring, seed_params)
+        count_real_pairs(out1["valid"], ql, per_read=True)
         f = {k: v.to(best_col.device) for k, v in f.items()}
         full = f if full is None else {k: torch.where(own, f[k], full[k])
                                        for k in f}

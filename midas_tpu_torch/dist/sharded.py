@@ -33,6 +33,7 @@ import torch
 
 from midas_tpu_torch.align.params import ScoringParams
 from midas_tpu_torch.align.pipeline import (_prepare_pairs,
+                                            count_real_pairs,
                                             dispatch_banded_align,
                                             resolve_device)
 from midas_tpu_torch.align.seed import (SeedParams, find_candidates,
@@ -233,6 +234,7 @@ def distributed_profile_step(
                                             cands["rc"])
         out = dispatch_banded_align(q_pair, ql_pair, ref_win.reshape(B * C, W),
                                     scoring, D)
+        count_real_pairs(cands["valid"], qj)
         score = torch.where(cands["valid"], out["score"].reshape(B, C),
                             -torch.inf)
         best_c = torch.argmax(score, dim=1, keepdim=True)   # first max

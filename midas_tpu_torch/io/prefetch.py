@@ -10,16 +10,24 @@ before the batch is used, and the tensors are record_stream'ed to the
 consumer's stream so the caching allocator does not reuse their memory
 while work queued there may still read them. On the CPU the batches are
 handed over as tensors, no copy.
+
+Spans (tracing.py): io.parse around each next() of the batch stream and
+io.upload around each upload, on the producer thread under the
+consumer's span; io.put_wait while the producer waits on a full queue;
+io.wait around the consumer's get. Counters: io.batches, io.reads.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator, Sequence
 
 import numpy as np
 import torch
+
+from midas_tpu_torch import tracing
 
 
 class DeviceBatch:
@@ -89,50 +97,67 @@ def prefetch_device_batches(
     stop = threading.Event()
 
     def _put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.2)
-                return True
-            except queue.Full:
-                continue
+        if stop.is_set():
+            return False
+        try:
+            q.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        with tracing.span("io.put_wait"):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
         return False
 
     def upload(batch):
-        host = [torch.from_numpy(np.ascontiguousarray(getattr(batch, f)))
-                for f in fields]
-        if not cuda:
-            return tuple(host), None
-        with torch.cuda.stream(side):
-            arrays = tuple(h.pin_memory().to(device, non_blocking=True)
-                           for h in host)
-            done = torch.cuda.Event()
-            done.record(side)
-        return arrays, done
+        with tracing.span("io.upload"):
+            host = [torch.from_numpy(np.ascontiguousarray(getattr(batch, f)))
+                    for f in fields]
+            if not cuda:
+                return tuple(host), None
+            with torch.cuda.stream(side):
+                arrays = tuple(h.pin_memory().to(device, non_blocking=True)
+                               for h in host)
+                done = torch.cuda.Event()
+                done.record(side)
+            return arrays, done
 
-    def produce():
-        try:
-            for bi, batch in enumerate(batches):
-                if stop.is_set():
-                    return
-                if bi < skip_batches:
-                    continue
-                if trim:
-                    trim_batch(batch, trim)
-                arrays, done = upload(batch)
-                total_bp = int(batch.lengths[: batch.n_reads].sum())
-                db = DeviceBatch(batch.n_reads, total_bp, arrays, bi,
-                                 getattr(batch, "global_index", bi))
-                if not _put((db, done)):
-                    return
-            _put(END)
-        except BaseException as e:  # noqa: BLE001 - re-raised in consumer
-            _put(e)
+    def produce(parent):
+        with tracing.under(parent):
+            try:
+                stream = iter(batches)
+                for bi in itertools.count():
+                    with tracing.span("io.parse"):
+                        batch = next(stream, END)
+                    if batch is END or stop.is_set():
+                        break
+                    if bi < skip_batches:
+                        continue
+                    if trim:
+                        trim_batch(batch, trim)
+                    arrays, done = upload(batch)
+                    total_bp = int(batch.lengths[: batch.n_reads].sum())
+                    db = DeviceBatch(batch.n_reads, total_bp, arrays, bi,
+                                     getattr(batch, "global_index", bi))
+                    tracing.count("io.batches", 1)
+                    tracing.count("io.reads", batch.n_reads)
+                    if not _put((db, done)):
+                        return
+                _put(END)
+            except BaseException as e:  # noqa: BLE001 - re-raised in consumer
+                _put(e)
 
-    t = threading.Thread(target=produce, daemon=True)
+    t = threading.Thread(target=produce, args=(tracing.current(),),
+                         daemon=True)
     t.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("io.wait"):
+                item = q.get()
             if item is END:
                 break
             if isinstance(item, BaseException):

@@ -18,6 +18,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from midas_tpu_torch import tracing
+
 
 def fingerprint(**kw) -> str:
     """Stable digest of everything that must match for a checkpoint to
@@ -29,14 +31,22 @@ def fingerprint(**kw) -> str:
 
 
 def save(path: str, arrays: Dict[str, np.ndarray], meta: Dict) -> None:
-    """Atomic save: write sibling tmp, fsync, rename."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez_compressed(f, __meta__=json.dumps(meta), **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+    """Atomic save: write sibling tmp, fsync, rename. Traced as the span
+    checkpoint.save, over checkpoint.compress (savez_compressed) and
+    checkpoint.fsync (flush and fsync), with the counter
+    checkpoint.bytes (the file's size)."""
+    with tracing.span("checkpoint.save"):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            with tracing.span("checkpoint.compress"):
+                np.savez_compressed(f, __meta__=json.dumps(meta), **arrays)
+            with tracing.span("checkpoint.fsync"):
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+        if tracing.enabled():
+            tracing.count("checkpoint.bytes", os.path.getsize(path))
 
 
 def load_any(path: str) -> Optional[Tuple[Dict[str, np.ndarray], Dict]]:

@@ -28,11 +28,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch.align import params as ap
 from midas_tpu_torch.align.params import ScoringParams
 from midas_tpu_torch.align.pipeline import (_align_batch_stages,
                                             align_candidates_score,
-                                            align_chosen_full)
+                                            align_chosen_full,
+                                            count_real_pairs)
 from midas_tpu_torch.align.seed import (SeedParams, revcomp_batch,
                                         reverse_batch)
 from midas_tpu_torch.profile.sparse_counts import counts_host_sparse
@@ -296,17 +298,23 @@ def paired_best_hit_device(
 
     Returns (aligned [B] bool, best_col [B] int64, mapq [B] int32) —
     the contract of best_hit_device, so every downstream filter is
-    unchanged."""
-    has_pair, pair_col, pair_mapq = concordant_pairs(
-        out, qlens, scoring, smin_table, maxins)
-    # unpaired fallback per mate (mixed mode)
-    u_aligned, u_col, u_mapq = best_hit_device(out, qlens, scoring,
-                                               smin_table)
-    has_pair_b = has_pair.repeat_interleave(2)
-    best_col = torch.where(has_pair_b, pair_col, u_col)
-    aligned = has_pair_b | u_aligned
-    mapq = torch.where(has_pair_b, pair_mapq.repeat_interleave(2), u_mapq)
-    return aligned, best_col, mapq
+    unchanged. Traced as the span steps.pair_pick, with the counters
+    pair.pairs (pairs with a nonempty first mate) and pair.concordant
+    (those with a concordant combination)."""
+    with tracing.span("steps.pair_pick"):
+        has_pair, pair_col, pair_mapq = concordant_pairs(
+            out, qlens, scoring, smin_table, maxins)
+        if tracing.enabled():
+            tracing.count("pair.pairs", (qlens[0::2] > 0).sum())
+            tracing.count("pair.concordant", has_pair.sum())
+        # unpaired fallback per mate (mixed mode)
+        u_aligned, u_col, u_mapq = best_hit_device(out, qlens, scoring,
+                                                   smin_table)
+        has_pair_b = has_pair.repeat_interleave(2)
+        best_col = torch.where(has_pair_b, pair_col, u_col)
+        aligned = has_pair_b | u_aligned
+        mapq = torch.where(has_pair_b, pair_mapq.repeat_interleave(2), u_mapq)
+        return aligned, best_col, mapq
 
 
 def keep_mask_chosen(
@@ -470,15 +478,16 @@ def species_state_host(state: SpeciesState) -> Dict[str, np.ndarray]:
     """Host snapshot with spill buffers sliced to occupied rows. Used for
     the end-of-stream readback and for checkpoints; amb_n in the result
     is the TRUE count (may exceed the rows present if the buffer
-    overflowed)."""
-    cap = state.amb_sp.shape[0] - 1
-    out, amb_n = sliced_spill_host(
-        {k: getattr(state, k) for k in SPILL_FIELDS}, state.amb_n, cap)
-    for k in ("uniq_count", "uniq_bp"):
-        out[k] = getattr(state, k).cpu().numpy()
-    out["total_alns"] = np.int64(int(state.total_alns))
-    out["amb_n"] = np.int64(amb_n)
-    return out
+    overflowed). Traced as profile.readback."""
+    with tracing.span("profile.readback"):
+        cap = state.amb_sp.shape[0] - 1
+        out, amb_n = sliced_spill_host(
+            {k: getattr(state, k) for k in SPILL_FIELDS}, state.amb_n, cap)
+        for k in ("uniq_count", "uniq_bp"):
+            out[k] = getattr(state, k).cpu().numpy()
+        out["total_alns"] = np.int64(int(state.total_alns))
+        out["amb_n"] = np.int64(amb_n)
+        return out
 
 
 def species_state_restore(h: Dict[str, np.ndarray], amb_cap: int,
@@ -539,6 +548,7 @@ def _two_pass_keep(index_arrays, pack_arrays, codes, quals, qlens,
                                                   smin_table)
     full = align_chosen_full(pack_arrays, aux, codes, qlens, best_col,
                              scoring, seed_params)
+    count_real_pairs(out1["valid"], qlens, per_read=True)
     aligned &= torch.arange(codes.shape[0], device=codes.device) < n_reads
     keep = aligned & keep_mask_chosen(full, qlens, mean_qual, mapq,
                                       mapid, readq, min_mapq, aln_cov)
@@ -603,7 +613,9 @@ def genes_tally(state: GenesState, num_genes: int, seq_idx: torch.Tensor,
 
 
 def genes_state_host(state: GenesState) -> Dict[str, np.ndarray]:
-    return {k: getattr(state, k).cpu().numpy() for k in GENES_FIELDS}
+    """Host snapshot of the accumulators, traced as profile.readback."""
+    with tracing.span("profile.readback"):
+        return {k: getattr(state, k).cpu().numpy() for k in GENES_FIELDS}
 
 
 def genes_state_restore(h: Dict[str, np.ndarray], device) -> GenesState:
@@ -664,11 +676,13 @@ def snps_state_host_without_counts(state) -> Dict[str, np.ndarray]:
 def snps_state_host(state: SnpsState) -> Dict[str, np.ndarray]:
     """Host snapshot: snps_state_host_without_counts and the counts
     through profile/sparse_counts.py (int32, the dump slot zeroed, as
-    midas_tpu's readback gives them)."""
-    out = snps_state_host_without_counts(state)
-    out["counts"] = counts_host_sparse(state.counts,
-                                       state.counts.shape[0] // 4 - 1)
-    return out
+    midas_tpu's readback gives them). Traced as profile.readback, with
+    the route the counts took as its attr route."""
+    with tracing.span("profile.readback"):
+        out = snps_state_host_without_counts(state)
+        out["counts"] = counts_host_sparse(state.counts,
+                                           state.counts.shape[0] // 4 - 1)
+        return out
 
 
 def snps_state_restore(h: Dict[str, np.ndarray], gap_cap: int,

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
 from midas_tpu_torch.align.pipeline import Aligner, resolve_device
 from midas_tpu_torch.align.seed import SeedParams
@@ -112,14 +113,16 @@ class GenesProfiler:
         readback. Batches parse and upload in a background thread; with
         checkpoint_path the state persists periodically (crash recovery
         and the reference's --align / --call_genes stage split). With
-        paired, read_paths is [m1, m2], or [m1] with interleaved."""
-        host = self._accumulate(read_paths, max_reads, trim, batch_size,
-                                checkpoint_path, paired=paired,
-                                interleaved=interleaved,
-                                read_length=read_length)
-        if align_only:
-            return None
-        return self._finalize(host)
+        paired, read_paths is [m1, m2], or [m1] with interleaved. Traced
+        as the span profile.sample, the root of the run's spans."""
+        with tracing.span(tracing.SAMPLE, path="genes"):
+            host = self._accumulate(read_paths, max_reads, trim, batch_size,
+                                    checkpoint_path, paired=paired,
+                                    interleaved=interleaved,
+                                    read_length=read_length)
+            if align_only:
+                return None
+            return self._finalize(host)
 
     def _accumulate(self, read_paths, max_reads, trim, batch_size,
                     checkpoint_path=None, checkpoint_every: int = 64,
@@ -157,8 +160,10 @@ class GenesProfiler:
                 device=dev, skip_batches=skip, trim=trim):
             last_index = db.index
             codes, quals, lengths, mean_qual = db.arrays
-            self._genes_step(state, codes, quals, lengths, mean_qual,
-                             db.n_reads, smin_table, bool(paired))
+            with tracing.span("profile.step", batch=db.index,
+                              reads=db.n_reads):
+                self._genes_step(state, codes, quals, lengths, mean_qual,
+                                 db.n_reads, smin_table, bool(paired))
             if checkpoint_path and (db.index + 1) % checkpoint_every == 0:
                 ckpt.save(checkpoint_path, ds.genes_state_host(state),
                           dict(fingerprint=fp, batches_done=db.index + 1,
@@ -221,6 +226,7 @@ class GenesProfiler:
                      "Run with --align first\n")
         return self._finalize(got[0])
 
+    @tracing.traced("profile.finalize")
     def _finalize(self, host: Dict) -> Dict:
         G = self.pack.num_seqs
         aligned_reads = np.asarray(host["aligned_reads"][:G]).astype(np.int64)
@@ -250,6 +256,7 @@ class GenesProfiler:
         )
         return self.results
 
+    @tracing.traced("write.results", path="genes")
     def write_results(self, outdir: str) -> None:
         """Per-species .genes.gz + genes/summary.txt (genes.py:220-245)."""
         r = self.results

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch.align.oracle import align_oracle_batch
 from midas_tpu_torch.align.params import GLOBAL_SCORING, LOCAL_SCORING
 from midas_tpu_torch.align.pipeline import Aligner, resolve_device
@@ -114,14 +115,16 @@ class SnpsProfiler:
         parse and upload in a background thread; with checkpoint_path
         the state persists periodically (crash recovery and the
         reference's --align / --pileup stage split). With paired,
-        read_paths is [m1, m2], or [m1] with interleaved."""
-        host = self._accumulate(read_paths, max_reads, trim, batch_size,
-                                gap_cap, checkpoint_path, paired=paired,
-                                interleaved=interleaved,
-                                read_length=read_length)
-        if align_only:
-            return None
-        return self._finalize(host)
+        read_paths is [m1, m2], or [m1] with interleaved. Traced as the
+        span profile.sample, the root of the run's spans."""
+        with tracing.span(tracing.SAMPLE, path="snps"):
+            host = self._accumulate(read_paths, max_reads, trim, batch_size,
+                                    gap_cap, checkpoint_path, paired=paired,
+                                    interleaved=interleaved,
+                                    read_length=read_length)
+            if align_only:
+                return None
+            return self._finalize(host)
 
     def _accumulate(self, read_paths, max_reads, trim, batch_size,
                     gap_cap=None, checkpoint_path=None,
@@ -145,16 +148,20 @@ class SnpsProfiler:
         drained: List[Dict[str, np.ndarray]] = []   # host gap rows
 
         def drain():
-            spill, n = ds.sliced_spill_host(
-                {k: getattr(state, k) for k in ds.GAP_FIELDS},
-                state.gap_n, cap)
-            if n > cap:
-                raise RuntimeError(
-                    f"gapped spill staging overflow ({n} > {cap}); "
-                    "cap must exceed the per-drain row bound")
-            if n:
-                drained.append(spill)
-            state.gap_n.zero_()
+            # traced as profile.drain (attr rows); counter snps.gap_rows
+            with tracing.span("profile.drain") as sp:
+                spill, n = ds.sliced_spill_host(
+                    {k: getattr(state, k) for k in ds.GAP_FIELDS},
+                    state.gap_n, cap)
+                sp.set(rows=n)
+                tracing.count("snps.gap_rows", n)
+                if n > cap:
+                    raise RuntimeError(
+                        f"gapped spill staging overflow ({n} > {cap}); "
+                        "cap must exceed the per-drain row bound")
+                if n:
+                    drained.append(spill)
+                state.gap_n.zero_()
 
         def gap_rows() -> Dict[str, np.ndarray]:
             if not drained:
@@ -199,8 +206,11 @@ class SnpsProfiler:
                 device=dev, skip_batches=skip, trim=trim):
             last_index = db.index
             codes, quals, lengths, mean_qual = db.arrays
-            self._snps_step(state, contig_species, codes, quals, lengths,
-                            mean_qual, db.n_reads, smin_table, bool(paired))
+            with tracing.span("profile.step", batch=db.index,
+                              reads=db.n_reads):
+                self._snps_step(state, contig_species, codes, quals,
+                                lengths, mean_qual, db.n_reads, smin_table,
+                                bool(paired))
             rows_bound += db.n_reads
             if rows_bound > cap - batch_size:
                 drain()
@@ -295,6 +305,7 @@ class SnpsProfiler:
                      "Run with --align first\n")
         return self._finalize(got[0])
 
+    @tracing.traced("profile.finalize")
     def _finalize(self, host: Dict) -> Dict:
         G = self.pack.total_len
         S = len(self.species_ids)
@@ -325,16 +336,17 @@ class SnpsProfiler:
                 mx, mn = -scoring.mismatch, scoring.mm_min
                 qpens.append(mn + ((mx - mn) * q) // 40)
         adds = []
-        for r, a in enumerate(align_oracle_batch(
-                queries, windows, scoring,
-                qpens=qpens if scoring.qual_scaled else None)):
-            qlen = len(queries[r])
-            m = a.qpos_to_tpos(qlen)
-            qpos = np.flatnonzero(m >= 0)
-            tpos = los[r] + m[qpos]
-            base = gap_codes[r, qpos]
-            mask = (gap_quals[r, qpos] >= self.baseq) & (base < 4)
-            adds.append((base[mask], tpos[mask]))
+        with tracing.span("snps.oracle", rows=len(queries)):
+            for r, a in enumerate(align_oracle_batch(
+                    queries, windows, scoring,
+                    qpens=qpens if scoring.qual_scaled else None)):
+                qlen = len(queries[r])
+                m = a.qpos_to_tpos(qlen)
+                qpos = np.flatnonzero(m >= 0)
+                tpos = los[r] + m[qpos]
+                base = gap_codes[r, qpos]
+                mask = (gap_quals[r, qpos] >= self.baseq) & (base < 4)
+                adds.append((base[mask], tpos[mask]))
         counts = np.asarray(host["counts"]).reshape(4, G + 1)[:, :G].copy()
         for base, tpos in adds:
             np.add.at(counts, (base, tpos), 1)
@@ -344,6 +356,7 @@ class SnpsProfiler:
                           mapped_reads=mapped_reads, n_gapped=n_gapped)
         return dict(counts=counts, **self.stats)
 
+    @tracing.traced("write.results", path="snps")
     def write_results(self, outdir: str) -> Dict[str, dict]:
         """Per-species .snps.gz over every genomic site + summary.txt
         (snps.py:164-262)."""
@@ -385,11 +398,13 @@ class SnpsProfiler:
         one row per site of its contigs, in sorted contig id order (the
         reference's order, snps.py:185). Rows are formatted from Python
         ints (.tolist()), which print as midas_tpu's numpy scalars do.
-        depth_all is self.counts.sum(axis=0). Returns the file's path."""
+        depth_all is self.counts.sum(axis=0). Returns the file's path.
+        Traced as write.sites (attr species)."""
         os.makedirs(os.path.join(outdir, "snps/output"), exist_ok=True)
         path = os.path.join(outdir,
                             f"snps/output/{self.species_ids[si]}.snps.gz")
-        with iopen(path, "wt") as f:
+        with tracing.span("write.sites", species=self.species_ids[si]), \
+                iopen(path, "wt") as f:
             f.write("\t".join(["ref_id", "ref_pos", "ref_allele", "depth",
                                "count_a", "count_c", "count_g",
                                "count_t"]) + "\n")

@@ -49,7 +49,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
+
 ROUTES: Counter = Counter()
+tracing.keep("routes", ROUTES)   # rec.kept["routes"] of a recording
 
 # The H100 host's costs that route_seconds weighs, as chip_smoke.py phase
 # readback measures them on repgenome-10sp's counts (its host_costs;
@@ -186,15 +189,19 @@ def counts_host_sparse(counts: torch.Tensor, G: int) -> np.ndarray:
     readback decides). Returns the int32 counts with flat index G
     zeroed. The device tensor is not written."""
     if G == 0:
-        ROUTES["empty"] += 1
-        return np.zeros(4, np.int32)
+        return _route("empty", np.zeros(4, np.int32))
     pa, stats = _phase_a(counts, G)
     if stats[0] == 0:
-        ROUTES["empty"] += 1
-        return np.zeros(4 * (G + 1), np.int32)
+        return _route("empty", np.zeros(4 * (G + 1), np.int32))
     sparse_s, whole_s = route_seconds(G, stats)
     if sparse_s >= whole_s:
-        ROUTES["whole"] += 1
-        return _whole_host(counts, G)
-    ROUTES["sparse"] += 1
-    return _sparse_host(pa, stats, G)
+        return _route("whole", _whole_host(counts, G))
+    return _route("sparse", _sparse_host(pa, stats, G))
+
+
+def _route(route: str, counts: np.ndarray) -> np.ndarray:
+    """Count the route taken in ROUTES, and name it to the open span
+    (profile.readback's attr route)."""
+    ROUTES[route] += 1
+    tracing.annotate(route=route)
+    return counts

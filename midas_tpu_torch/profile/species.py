@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from midas_tpu_torch import tracing
 from midas_tpu_torch.align.params import MARKER_SCORING
 from midas_tpu_torch.align.pipeline import (Aligner, AlignmentResult,
                                             resolve_device)
@@ -114,19 +115,24 @@ class SpeciesProfiler:
         full alignment results are needed on the host for the outfmt-6
         rows, so each batch is read back and the host classifier runs
         instead (no checkpoint); both paths give equal abundances and
-        stats."""
-        if m8_path is None:
-            unique_count, unique_bp, ambiguous = self._run_device(
-                read_paths, read_length, max_reads, batch_size,
-                checkpoint_path=checkpoint_path)
-        else:
-            unique_count, unique_bp, ambiguous = self._run_host(
-                read_paths, read_length, max_reads, batch_size, m8_path)
-        return self.assign_and_normalize(unique_count, unique_bp, ambiguous)
+        stats. Traced as the span profile.sample, the root of the run's
+        spans."""
+        with tracing.span(tracing.SAMPLE, path="species"):
+            if m8_path is None:
+                unique_count, unique_bp, ambiguous = self._run_device(
+                    read_paths, read_length, max_reads, batch_size,
+                    checkpoint_path=checkpoint_path)
+            else:
+                unique_count, unique_bp, ambiguous = self._run_host(
+                    read_paths, read_length, max_reads, batch_size, m8_path)
+            return self.assign_and_normalize(unique_count, unique_bp,
+                                             ambiguous)
 
+    @tracing.traced("profile.finalize")
     def assign_and_normalize(self, unique_count, unique_bp, ambiguous) -> Dict:
         """RNG assignment of ambiguous reads + coverage normalization —
-        the deterministic host tail (midas_tpu's, unchanged)."""
+        the deterministic host tail (midas_tpu's, unchanged), traced as
+        profile.finalize."""
         # Rows must be consumed in GLOBAL STREAM ORDER — the reference
         # draws its RNG choices sequentially while parsing the m8 stream
         # (species.py:104-119). Items are (seq_ids, sp_ids, alns[, ord]);
@@ -306,17 +312,20 @@ class SpeciesProfiler:
         drained: List[Dict[str, np.ndarray]] = []   # host amb rows, stream order
 
         def drain(state):
-            """Pull occupied spill rows to host, reset the device cursor."""
-            spill, n = ds.sliced_spill_host(
-                {k: getattr(state, k) for k in ds.SPILL_FIELDS},
-                state.amb_n, cap)
-            if n > cap:
-                raise RuntimeError(
-                    f"ambiguous spill staging overflow ({n} > {cap}); "
-                    "cap must exceed the per-drain row bound")
-            if n:
-                drained.append(spill)
-            state.amb_n.zero_()
+            """Pull occupied spill rows to host, reset the device cursor
+            (traced as profile.drain, attr rows)."""
+            with tracing.span("profile.drain") as sp:
+                spill, n = ds.sliced_spill_host(
+                    {k: getattr(state, k) for k in ds.SPILL_FIELDS},
+                    state.amb_n, cap)
+                sp.set(rows=n)
+                if n > cap:
+                    raise RuntimeError(
+                        f"ambiguous spill staging overflow ({n} > {cap}); "
+                        "cap must exceed the per-drain row bound")
+                if n:
+                    drained.append(spill)
+                state.amb_n.zero_()
 
         def full_rows() -> Dict[str, np.ndarray]:
             if not drained:
@@ -367,9 +376,11 @@ class SpeciesProfiler:
             total_reads += db.n_reads
             total_bp += db.total_bp
             codes, lengths = db.arrays
-            self._species_step(state, seq_species, seq_cutoff, codes,
-                               lengths, db.n_reads,
-                               db.global_index * batch_size, min_score)
+            with tracing.span("profile.step", batch=db.index,
+                              reads=db.n_reads):
+                self._species_step(state, seq_species, seq_cutoff, codes,
+                                   lengths, db.n_reads,
+                                   db.global_index * batch_size, min_score)
             rows_bound += db.n_reads
             if rows_bound > cap - batch_size:
                 drain(state)
@@ -464,8 +475,10 @@ class SpeciesProfiler:
 
 
 def write_abundance(outpath: str, abundance: Dict) -> None:
-    """species_profile.txt writer, format-identical to species.py:165-175."""
-    with open(outpath, "w") as f:
+    """species_profile.txt writer, format-identical to species.py:165-175;
+    traced as write.results."""
+    with tracing.span("write.results", path="species"), \
+            open(outpath, "w") as f:
         f.write("\t".join(["species_id", "count_reads", "coverage", "relative_abundance"]) + "\n")
         order = sorted(abundance.items(), key=lambda kv: kv[1]["count"], reverse=True)
         for sid, v in order:
