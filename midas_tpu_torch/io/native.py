@@ -1,11 +1,13 @@
-"""ctypes binding for the native batch reader (io/_native/midas_io.cpp).
+"""ctypes binding for the native batch reader and the snps site writer
+(io/_native/midas_io.cpp).
 
 The shared library is compiled on first use with g++ (-O3, linked
 against zlib) into the checkout's build/ directory, beside the CUDA
 kernels (midas_tpu_torch/_build.py). Callers must treat
 availability as optional: `load_native()` returns None when no
 compiler/zlib is present, and io.batch falls back to the pure-Python
-parser (seqio.read_fastx).
+parser (seqio.read_fastx), SnpsProfiler.write_sites to its Python rows
+and gzip.open.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 import subprocess
 import sys
 import threading
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,7 +35,7 @@ def _build() -> Optional[str]:
         return so
     tmp = so + f".tmp.{os.getpid()}"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           _SRC, "-o", tmp, "-lz"]
+           "-pthread", _SRC, "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
@@ -75,6 +77,14 @@ def load_native() -> Optional[ctypes.CDLL]:
         lib.mio_truncated.argtypes = [ctypes.c_void_p]
         lib.mio_max_read_len.restype = ctypes.c_long
         lib.mio_max_read_len.argtypes = [ctypes.c_char_p]
+        lib.mio_write_sites.restype = ctypes.c_long
+        lib.mio_write_sites.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
         _LIB = lib
         return _LIB
 
@@ -93,6 +103,47 @@ def native_max_read_len(paths) -> Optional[int]:
             return None
         mx = max(mx, int(n))
     return mx
+
+
+def write_sites_gz(lib: ctypes.CDLL, path: str, header: str,
+                   contigs: Sequence[Tuple[str, int, int]],
+                   codes: np.ndarray, depth: np.ndarray, counts: np.ndarray,
+                   threads: int) -> Dict[str, int]:
+    """Write one species' .snps.gz natively (mio_write_sites): header,
+    then a row per site of contigs ((name, lo, hi): pack indices
+    [lo, hi), in file order), one gzip member at level 9, deflated in
+    fixed chunks on up to `threads` threads (the bytes do not depend on
+    it). codes (int8), depth and the [4, G] counts are indexed by pack
+    index; counts are read in place when int32 or int64 with contiguous
+    rows. Returns the writer's sites, chunks, threads, text_bytes and
+    gz_bytes."""
+    names = [n.encode() for n, _, _ in contigs]
+    name_off = np.zeros(len(names) + 1, dtype=np.int64)
+    name_off[1:] = np.cumsum([len(n) for n in names])
+    lo = np.array([c[1] for c in contigs], dtype=np.int64)
+    hi = np.array([c[2] for c in contigs], dtype=np.int64)
+    if (counts.ndim != 2 or counts.shape[0] != 4 or (lo < 0).any()
+            or (hi > min(len(codes), len(depth), counts.shape[1])).any()):
+        raise ValueError("sites outside the codes, depth or [4, G] counts")
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    depth = np.ascontiguousarray(depth, dtype=np.int64)
+    if (counts.dtype not in (np.int32, np.int64)
+            or counts.strides[1] != counts.itemsize):
+        counts = np.ascontiguousarray(counts, dtype=np.int64)
+    head = header.encode()
+    stats = np.zeros(5, dtype=np.int64)
+    rc = lib.mio_write_sites(
+        path.encode(), head, len(head), len(names), b"".join(names),
+        name_off.ctypes.data, lo.ctypes.data, hi.ctypes.data,
+        codes.ctypes.data, depth.ctypes.data, counts.ctypes.data,
+        counts.itemsize, counts.strides[0] // counts.itemsize, threads,
+        stats.ctypes.data)
+    if rc == -1:
+        raise OSError(f"native site writer could not write {path}")
+    if rc:
+        raise ValueError(f"native site writer failed ({rc}) on {path}")
+    return dict(zip(("sites", "chunks", "threads", "text_bytes", "gz_bytes"),
+                    stats.tolist()))
 
 
 class NativeBatcher:
